@@ -1,8 +1,9 @@
 """Build and load the port's hand-written CUDA kernels.
 
-``nvcc`` compiles every ``csrc/*.cu`` for Hopper (``sm_90a``) into one
-shared library with a plain C interface, which :func:`load` opens with
-``ctypes``.  The library's file name carries a hash of the sources and
+``nvcc`` compiles every ``csrc/*.cu`` for Hopper (``sm_90a``), one
+process per source, all started together, and links the objects into
+one shared library with a plain C interface, which :func:`load` opens
+with ``ctypes``.  The library's file name carries a hash of the sources and
 flags, so an edited kernel never loads a stale build; the build goes to
 a private temporary name and is renamed into place, so concurrent
 processes never open a half-written file.  A lock makes the build
@@ -21,6 +22,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _HERE = Path(__file__).resolve().parent
@@ -31,7 +33,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3",
     # the Lodhi update must not contract into FMAs (bit-identical f32)
     "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -49,6 +51,8 @@ _SIGNATURES = {
     # rows, patw, emit_lo, emit_hi, keys, cnt, R, L, W, top_bit, m, k,
     # klmul, stream
     "bb_myers_topk": [_P] * 6 + [_I] * 7 + [_P],
+    # rows, patw, emit_lo, emit_hi, map, R, L, W, top_bit, m, k, stream
+    "bb_myers_valleys": [_P] * 5 + [_I] * 6 + [_P],
     # mode, pat, pat_stride, win, c0, ledge, rpos, ehi, wlen, out,
     # out_cnt, H, m, W, unit, alpha, ra, rb, k_scaled, klmul, stream
     "bb_window": [_I, _P, ctypes.c_longlong] + [_P] * 8 + [_I] * 9 + [_P],
@@ -83,22 +87,36 @@ def library_path() -> Path:
     return BUILD_DIR / f"libbarbell_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmd, what: str) -> str:
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    if res.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed on {what} ({res.returncode}):\n{res.stdout}\n{res.stderr}"
+        )
+    return res.stdout + res.stderr
+
+
 def _build(so: Path) -> str:
     cu, _ = _sources()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{so.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{f.stem}.o" for f in cu]
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
     try:
-        res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}"
-            )
+        with ThreadPoolExecutor(max_workers=len(cu)) as pool:
+            logs = list(pool.map(
+                lambda fo: _run([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(fo[1]),
+                                 str(fo[0])], fo[0].name),
+                zip(cu, objs),
+            ))
+        logs.append(_run([_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                          "-shared", "-o", str(tmp), *map(str, objs)], "link"))
         os.replace(tmp, so)
     finally:
-        if tmp.exists():
-            tmp.unlink()
-    return res.stdout + res.stderr
+        for f in (tmp, *objs):
+            if f.exists():
+                f.unlink()
+    return "".join(logs)
 
 
 def load() -> ctypes.CDLL:

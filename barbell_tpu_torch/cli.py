@@ -1,11 +1,11 @@
-"""Command line of the port: ``python -m barbell_tpu_torch kit ...``.
+"""Command line of the port: ``python -m barbell_tpu_torch <command>``.
 
-``kit`` runs the flagship pipeline on the port's engine (``--backend
-torch`` on the CUDA device, or the scalar ``oracle``).  The host-only
-subcommands ``filter``, ``trim``, ``inspect``, ``kits`` and ``sim``
-delegate to barbell_tpu's handlers (they never touch a device);
-``annotate``, ``compare``, ``kit --full-scan`` and ``kit
---use-extended`` are not ported yet and exit with status 2.
+``annotate`` and ``kit`` run on the port's engine (``--backend torch``
+on the CUDA device, or the scalar ``oracle``); ``filter``, ``trim``,
+``inspect``, ``kits`` and ``sim`` are host-only, as in barbell_tpu.
+Flag names and defaults follow barbell_tpu's CLI.  ``compare``, ``kit
+--use-extended``, ``kit --no-stream`` / ``--verbose`` and ``annotate``'s
+multi-host sharding are not ported yet and exit with status 2.
 """
 
 from __future__ import annotations
@@ -14,23 +14,90 @@ import argparse
 import sys
 from typing import List, Optional
 
-from barbell_tpu import cli as reference_cli
-from barbell_tpu.stages.kit import KitRunConfig
+from .models.records import BarcodeType
+from .stages.annotate import (
+    BACKENDS,
+    AnnotateConfig,
+    annotate_with_files,
+    annotate_with_kit,
+)
+from .stages.filter import filter_from_text_files
+from .stages.inspect import inspect
+from .stages.kit import KitRunConfig, demux_using_kit
+from .stages.trim import LabelConfig, trim_matches
 
-from .stages.annotate import BACKENDS
+NOT_PORTED = ("compare",)
+DEVICE = "cuda"  # --backend torch
 
-DELEGATED = ("filter", "trim", "inspect", "kits", "sim")
-NOT_PORTED = ("annotate", "compare")
+
+def _add_backend_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument(
+        "--backend", choices=list(BACKENDS), default="torch",
+        help="torch: the batched pipeline on the CUDA device; oracle: the "
+        "scalar NumPy engine",
+    )
+    p.add_argument("--batch-size", type=int, default=2048,
+                   help="Reads per device batch")
 
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="barbell-tpu-torch",
         description="Pattern-aware Nanopore barcode demultiplexing on one "
-        "NVIDIA GPU (PyTorch + CUDA port of barbell-tpu). Also: "
-        + ", ".join(DELEGATED) + " (as in barbell_tpu).",
+        "NVIDIA GPU (PyTorch + CUDA port of barbell-tpu).",
     )
     sub = parser.add_subparsers(dest="command", required=True)
+
+    p = sub.add_parser("annotate", help="Annotate FASTQ files with barcode information")
+    p.add_argument("-i", "--input", nargs="+", required=True, help="Read FASTQ file(s)")
+    p.add_argument("-o", "--output", default="output.tsv")
+    p.add_argument("-q", "--queries", nargs="+", help="Query FASTA file(s)")
+    p.add_argument(
+        "-b", "--barcode-types", nargs="+", default=["Ftag"],
+        help="Barcode types matching --queries order (Ftag or Rtag)",
+    )
+    p.add_argument("--kit", help="Kit name (e.g. SQK-RBK114-24)")
+    p.add_argument("--flank-max-errors", type=int, default=None)
+    p.add_argument("--min-score", type=float, default=0.2)
+    p.add_argument("--min-score-diff", type=float, default=0.1)
+    p.add_argument("--alpha", type=float, default=0.4)
+    p.add_argument(
+        "--ends-window", type=int, default=None,
+        help="Scan only each read's first/last N bases (device backend;"
+        " mid-read hits are skipped). Default: whole-read scan.",
+    )
+    _add_backend_args(p)
+
+    p = sub.add_parser("filter", help="Filter annotation files based on pattern")
+    p.add_argument("-i", "--input", required=True)
+    p.add_argument("-o", "--output", required=True)
+    p.add_argument("-f", "--file", nargs="+", required=True, help="Pattern file(s)")
+    p.add_argument("--dropped", help="Write dropped read annotations to this file")
+    p.add_argument("--verbose", action="store_true")
+
+    p = sub.add_parser("trim", help="Trim and sort reads based on filtered annotations")
+    p.add_argument("-i", "--input", required=True)
+    p.add_argument("-r", "--reads", nargs="+", required=True)
+    p.add_argument("-o", "--output", required=True)
+    p.add_argument("-t", "--threads", type=int, default=1,
+                   help="Writer threads (parallel gzip compression)")
+    p.add_argument("--no-label", action="store_true")
+    p.add_argument("--no-orientation", action="store_true")
+    p.add_argument("--no-flanks", action="store_true")
+    p.add_argument("--sort-labels", action="store_true")
+    p.add_argument("--only-side", choices=["left", "right"])
+    p.add_argument("--failed-out")
+    p.add_argument("--skip-trim", action="store_true")
+    p.add_argument("--flip", action="store_true")
+    p.add_argument("--verbose", action="store_true")
+    p.add_argument("--gzip", action="store_true")
+
+    p = sub.add_parser("inspect", help="View most common patterns in annotation")
+    p.add_argument("-i", "--input", required=True)
+    p.add_argument("-n", "--top-n", type=int, default=10)
+    p.add_argument("-o", "--read-pattern-out")
+    p.add_argument("-s", "--bucket-size", type=int, default=250)
+
     p = sub.add_parser("kit", help="Run a kit preset pipeline")
     p.add_argument("-k", "--kit", required=True)
     p.add_argument("-i", "--input", nargs="+", required=True)
@@ -45,50 +112,140 @@ def build_parser() -> argparse.ArgumentParser:
                    help="not ported yet")
     p.add_argument("--alpha", type=float, default=0.4)
     p.add_argument("--gzip", action="store_true")
-    p.add_argument("--full-scan", action="store_true", help="not ported yet")
     p.add_argument(
-        "--backend", choices=list(BACKENDS), default="torch",
-        help="torch: the batched pipeline on the CUDA device; oracle: the "
-        "scalar NumPy engine",
+        "--full-scan", action="store_true",
+        help="Scan whole reads instead of the preset-window ends-only "
+        "fast path (the presets positionally reject mid-read hits).",
     )
-    p.add_argument("--batch-size", type=int, default=2048,
-                   help="Reads per device batch")
+    _add_backend_args(p)
+
+    sub.add_parser("kits", help="List supported kit names")
+
+    p = sub.add_parser("sim", help="Generate simulated reads with ground truth")
+    p.add_argument("-n", "--num-reads", type=int, default=1000)
+    p.add_argument("-o", "--output", required=True, help="Output directory")
+    p.add_argument("-r", "--rc-frac", type=float, default=0.5)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--groups", nargs="+", default=None, help="Subset of GroupI..GroupVI")
+    p.add_argument("--num-barcodes", type=int, default=96)
     return parser
 
 
 def main(argv: Optional[List[str]] = None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
-    if argv and argv[0] in DELEGATED:
-        args = reference_cli.build_parser().parse_args(argv)
-        return reference_cli._dispatch(args)
     if argv and argv[0] in NOT_PORTED:
         print(f"Error: '{argv[0]}' is not ported yet (see ROADMAP.md)")
         return 2
     args = build_parser().parse_args(argv)
-    config = KitRunConfig(
-        kit_name=args.kit,
-        output_folder=args.output,
-        threads=args.threads,
-        maximize=args.maximize,
-        min_score=args.min_score,
-        min_score_diff=args.min_score_diff,
-        max_flank_errors=args.flank_max_errors,
-        failed_out=args.failed_out,
-        use_extended=args.use_extended,
-        alpha=args.alpha,
-        gzip=args.gzip,
-        backend=args.backend,
-        batch_size=args.batch_size,
-        full_scan=args.full_scan,
-    )
-    from .stages.kit import demux_using_kit
-
     try:
-        demux_using_kit(args.input, config, device="cuda")
+        return _dispatch(args)
     except NotImplementedError as exc:
         print(f"Error: {exc}")
         return 2
     except (KeyError, ValueError, OSError) as exc:
         print(f"Error: {exc.args[0] if exc.args else exc}")
         return 1
+
+
+def _dispatch(args) -> int:
+    if args.command == "annotate":
+        print("Starting annotation...")
+        config = AnnotateConfig(
+            max_flank_errors=args.flank_max_errors,
+            alpha=args.alpha,
+            min_score=args.min_score,
+            min_score_diff=args.min_score_diff,
+            backend=args.backend,
+            batch_size=args.batch_size,
+            ends_window=args.ends_window,
+        )
+        if args.kit:
+            annotate_with_kit(args.input, args.output, args.kit, config, DEVICE)
+        else:
+            if not args.queries:
+                print("Error: --queries is required unless --kit is provided")
+                return 1
+            try:
+                types = [BarcodeType(t) for t in args.barcode_types]
+            except ValueError as e:
+                print(f"Error during processing: {e}; use one of: Ftag, Rtag")
+                return 1
+            annotate_with_files(args.input, args.queries, types, args.output,
+                                config, DEVICE)
+        print("Annotation complete!")
+
+    elif args.command == "filter":
+        print("Starting filtering...")
+        filter_from_text_files(
+            args.input, args.file, args.output, args.dropped, args.verbose
+        )
+        print("Filtering successful!")
+
+    elif args.command == "trim":
+        print("Starting trimming...")
+        label_config = LabelConfig(
+            include_label=not args.no_label,
+            include_orientation=not args.no_orientation,
+            include_flank=not args.no_flanks,
+            sort_labels=args.sort_labels,
+            only_side=args.only_side,
+        )
+        trim_matches(
+            args.input,
+            args.reads,
+            args.output,
+            label_config=label_config,
+            failed_out=args.failed_out,
+            write_full_header=True,
+            skip_trim=args.skip_trim,
+            flip=args.flip,
+            verbose=args.verbose,
+            use_gzip=args.gzip,
+            threads=args.threads,
+        )
+        print("Trimming complete!")
+
+    elif args.command == "inspect":
+        print("Inspecting...")
+        inspect(args.input, args.top_n, args.read_pattern_out, args.bucket_size)
+        print("Inspection complete!")
+
+    elif args.command == "kit":
+        config = KitRunConfig(
+            kit_name=args.kit,
+            output_folder=args.output,
+            threads=args.threads,
+            maximize=args.maximize,
+            min_score=args.min_score,
+            min_score_diff=args.min_score_diff,
+            max_flank_errors=args.flank_max_errors,
+            failed_out=args.failed_out,
+            use_extended=args.use_extended,
+            alpha=args.alpha,
+            gzip=args.gzip,
+            backend=args.backend,
+            batch_size=args.batch_size,
+            full_scan=args.full_scan,
+        )
+        demux_using_kit(args.input, config, device=DEVICE)
+
+    elif args.command == "kits":
+        from .kits.database import get_kit_info, supported_kits
+
+        for alias in supported_kits():
+            print(f"{alias}\t{get_kit_info(alias).name}")
+
+    elif args.command == "sim":
+        from .sim.simulate import GROUPS, create_testdata, default_barcodes
+
+        create_testdata(
+            args.num_reads,
+            args.output,
+            barcodes=default_barcodes(args.num_barcodes),
+            rc_frac=args.rc_frac,
+            seed=args.seed,
+            groups=tuple(args.groups) if args.groups else GROUPS,
+        )
+        print(f"Simulated data written to {args.output}")
+
     return 0

@@ -1,9 +1,12 @@
 // Interior flank scan: unit-cost semiglobal bit-parallel Myers search of
-// one IUPAC flank over every row, with the 8 lowest plateau-valley keys
-// (cost * klmul + j, ascending) and the exact valley count per row.
+// one IUPAC flank over every row.  Two output modes, one template flag:
+// top-K (the 8 lowest plateau-valley keys cost * klmul + j, ascending, and
+// the exact valley count per row) and map (a u8 valley-cost map [R, L],
+// 255 where position j is no valley).
 //
-// Replaces barbell_tpu/ops/pallas_myers.py::_kernel in top-K mode
-// (reached through myers_topk_from_words).
+// Replaces barbell_tpu/ops/pallas_myers.py::_kernel in both modes: top-K
+// (reached through myers_topk_from_words) and map (myers_valleys,
+// myers_valleys_from_words).
 //
 // Design: one thread per row.  The pattern's W <= 4 Pv/Mv words, the
 // running end cost and the top-8 chain live in registers; the per-text-
@@ -16,16 +19,18 @@
 // ~8k rows (~62 threads per SM), so the kernel is latency-bound: neither
 // the 8k x 512 bytes it reads nor the ALUs are near their limits.  More
 // rows per SM (several rows per warp lane, or splitting L with a carry
-// fix-up) is the lever for a later change.
+// fix-up) is the lever for a later change.  Map mode writes one byte per
+// row position besides reading one: each thread packs 16 positions into a
+// 16-byte store, so it stays bound by the same dependent chain.
 #include "common.cuh"
 
 namespace {
 
-template <int W>
-__global__ void myers_topk_kernel(
+template <int W, bool TOPK>
+__global__ void myers_kernel(
     const uint8_t* __restrict__ rows, const uint32_t* __restrict__ patw,
     const int* __restrict__ emit_lo, const int* __restrict__ emit_hi,
-    int* __restrict__ keys, int* __restrict__ cnt,
+    int* __restrict__ keys, int* __restrict__ cnt, uint8_t* __restrict__ map,
     int R, int L, int top_bit, int m, int k, int klmul) {
     __shared__ uint32_t lut[16][W];
     if (threadIdx.x < 16) {
@@ -56,10 +61,13 @@ __global__ void myers_topk_kernel(
     const int lo = emit_lo[r];
     const int hi = emit_hi[r];
     const uint4* row = reinterpret_cast<const uint4*>(rows + (size_t)r * L);
+    uint4* out_row =
+        TOPK ? nullptr : reinterpret_cast<uint4*>(map + (size_t)r * L);
 
     for (int c = 0; c < L / 16; ++c) {
         const uint4 v = row[c];
         const uint32_t words[4] = {v.x, v.y, v.z, v.w};
+        uint32_t ob[4] = {0u, 0u, 0u, 0u};  // map mode: 16 output bytes
 #pragma unroll
         for (int q = 0; q < 16; ++q) {
             const int j = c * 16 + q;
@@ -92,28 +100,63 @@ __global__ void myers_topk_kernel(
             }
             const int e_next = e_cur + (int)ph_top - (int)mh_top;
             // decide position j with (e_prev, e_cur, e_next)
-            if (e_cur <= k && e_cur <= e_prev && e_cur < e_next && j >= lo &&
-                j <= hi) {
-                bb::topk_insert(tk, e_cur * klmul + j);
-                ++count;
+            const bool valley = e_cur <= k && e_cur <= e_prev &&
+                                e_cur < e_next && j >= lo && j <= hi;
+            if (TOPK) {
+                if (valley) {
+                    // e * klmul is formed for valleys only: it overflows
+                    // int32 for the large costs of non-valley positions
+                    bb::topk_insert(tk, e_cur * klmul + j);
+                    ++count;
+                }
+            } else {
+                // a valley's cost is <= k < 255
+                const uint32_t byte = valley ? (uint32_t)e_cur : 255u;
+                ob[q >> 2] |= byte << ((q & 3) * 8);
             }
             e_prev = e_cur;
             e_cur = e_next;
         }
+        if (!TOPK) out_row[c] = make_uint4(ob[0], ob[1], ob[2], ob[3]);
     }
+    if (TOPK) {
 #pragma unroll
-    for (int s = 0; s < bb::TOPK; ++s) keys[(size_t)r * bb::TOPK + s] = tk[s];
-    cnt[r] = count;
+        for (int s = 0; s < bb::TOPK; ++s) keys[(size_t)r * bb::TOPK + s] = tk[s];
+        cnt[r] = count;
+    }
 }
 
-template <int W>
+template <int W, bool TOPK>
 void launch(const uint8_t* rows, const uint32_t* patw, const int* emit_lo,
-            const int* emit_hi, int* keys, int* cnt, int R, int L,
-            int top_bit, int m, int k, int klmul, cudaStream_t stream) {
+            const int* emit_hi, int* keys, int* cnt, uint8_t* map, int R,
+            int L, int top_bit, int m, int k, int klmul, cudaStream_t stream) {
     const int threads = 64;
     const int blocks = (R + threads - 1) / threads;
-    myers_topk_kernel<W><<<blocks, threads, 0, stream>>>(
-        rows, patw, emit_lo, emit_hi, keys, cnt, R, L, top_bit, m, k, klmul);
+    myers_kernel<W, TOPK><<<blocks, threads, 0, stream>>>(
+        rows, patw, emit_lo, emit_hi, keys, cnt, map, R, L, top_bit, m, k,
+        klmul);
+}
+
+template <bool TOPK>
+int dispatch(const void* rows, const void* patw, const void* emit_lo,
+             const void* emit_hi, int* keys, int* cnt, uint8_t* map, int R,
+             int L, int W, int top_bit, int m, int k, int klmul,
+             void* stream) {
+    auto s = static_cast<cudaStream_t>(stream);
+    auto a = static_cast<const uint8_t*>(rows);
+    auto p = static_cast<const uint32_t*>(patw);
+    auto lo = static_cast<const int*>(emit_lo);
+    auto hi = static_cast<const int*>(emit_hi);
+    if (R > 0) {
+        switch (W) {
+            case 1: launch<1, TOPK>(a, p, lo, hi, keys, cnt, map, R, L, top_bit, m, k, klmul, s); break;
+            case 2: launch<2, TOPK>(a, p, lo, hi, keys, cnt, map, R, L, top_bit, m, k, klmul, s); break;
+            case 3: launch<3, TOPK>(a, p, lo, hi, keys, cnt, map, R, L, top_bit, m, k, klmul, s); break;
+            case 4: launch<4, TOPK>(a, p, lo, hi, keys, cnt, map, R, L, top_bit, m, k, klmul, s); break;
+            default: return (int)cudaErrorInvalidValue;
+        }
+    }
+    return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -123,21 +166,16 @@ extern "C" int bb_myers_topk(const void* rows, const void* patw,
                              void* keys, void* cnt, int R, int L, int W,
                              int top_bit, int m, int k, int klmul,
                              void* stream) {
-    auto s = static_cast<cudaStream_t>(stream);
-    auto a = static_cast<const uint8_t*>(rows);
-    auto p = static_cast<const uint32_t*>(patw);
-    auto lo = static_cast<const int*>(emit_lo);
-    auto hi = static_cast<const int*>(emit_hi);
-    auto ko = static_cast<int*>(keys);
-    auto co = static_cast<int*>(cnt);
-    if (R > 0) {
-        switch (W) {
-            case 1: launch<1>(a, p, lo, hi, ko, co, R, L, top_bit, m, k, klmul, s); break;
-            case 2: launch<2>(a, p, lo, hi, ko, co, R, L, top_bit, m, k, klmul, s); break;
-            case 3: launch<3>(a, p, lo, hi, ko, co, R, L, top_bit, m, k, klmul, s); break;
-            case 4: launch<4>(a, p, lo, hi, ko, co, R, L, top_bit, m, k, klmul, s); break;
-            default: return (int)cudaErrorInvalidValue;
-        }
-    }
-    return (int)cudaGetLastError();
+    return dispatch<true>(rows, patw, emit_lo, emit_hi,
+                          static_cast<int*>(keys), static_cast<int*>(cnt),
+                          nullptr, R, L, W, top_bit, m, k, klmul, stream);
+}
+
+extern "C" int bb_myers_valleys(const void* rows, const void* patw,
+                                const void* emit_lo, const void* emit_hi,
+                                void* map, int R, int L, int W, int top_bit,
+                                int m, int k, void* stream) {
+    return dispatch<false>(rows, patw, emit_lo, emit_hi, nullptr, nullptr,
+                           static_cast<uint8_t*>(map), R, L, W, top_bit, m, k,
+                           0, stream);
 }

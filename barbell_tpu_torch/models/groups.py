@@ -15,15 +15,14 @@ import numpy as np
 import torch
 from torch import nn
 
-from barbell_tpu import PADDING
-from barbell_tpu.models import hittable
-from barbell_tpu.models.barcodes import BarcodeGroup
-from barbell_tpu.models.demux import BARCODE_K_FRAC
-from barbell_tpu.models.records import Strand
-from barbell_tpu.ops import oracle
-from barbell_tpu.ops.lodhi import perfect_score
-
+from .. import PADDING
+from ..ops import oracle
+from ..ops.lodhi import perfect_score
 from ..ops.myers import pattern_words
+from . import hittable
+from .barcodes import BarcodeGroup
+from .demux import BARCODE_K_FRAC
+from .records import Strand
 
 
 class GroupTensors(nn.Module):
@@ -49,8 +48,7 @@ class GroupTensors(nn.Module):
 
 
 def group_tensors_from_numpy(flank, patw, patterns_all, device) -> GroupTensors:
-    """The JAX package's numpy query constants as the port's tensors on
-    ``device``."""
+    """Numpy query constants as the port's tensors on ``device``."""
     return GroupTensors(flank, patw, patterns_all).to(device)
 
 

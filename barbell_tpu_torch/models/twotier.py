@@ -2,8 +2,7 @@
 rescan for the few reads whose near-boundary hits could chain deeper.
 
 Counterpart of :mod:`barbell_tpu.models.twotier` on
-:class:`~barbell_tpu_torch.models.pipeline.TorchDemuxEngine`; the plan
-dataclass :class:`~barbell_tpu.models.twotier.EndsPlan` is shared.
+:class:`~barbell_tpu_torch.models.pipeline.TorchDemuxEngine`.
 Contract (docs/SEMANTICS.md deviation 7): triggered reads get exactly
 the deep-window row set, untriggered reads the shallow-window row set.
 """
@@ -11,23 +10,38 @@ the deep-window row set, untriggered reads the shallow-window row set.
 from __future__ import annotations
 
 import random
-from typing import List, Optional
+from dataclasses import dataclass
+from typing import List, Optional, Tuple
 
 import numpy as np
 
-from barbell_tpu import PADDING
-from barbell_tpu.models import hittable
-from barbell_tpu.models.hittable import HitTable
-from barbell_tpu.models.twotier import EndsPlan
+from .. import PADDING
+from . import hittable
+from .hittable import HitTable
+from .pipeline import TorchDemuxEngine, _pow2_at_least
 
-from .pipeline import _NOT_PORTED, TorchDemuxEngine, _pow2_at_least
+
+@dataclass(frozen=True)
+class EndsPlan:
+    """Preset-derived per-side / per-tier ends-scan windows.
+
+    ``shallow`` is the (prefix, suffix) window pair every read is
+    scanned with; ``deep`` (optional) the rescan pair for triggered
+    reads (suffix side never deepens: ``@prev_left`` after ``@right``
+    is unbounded and forces a full scan instead); ``trigger_margin``
+    the read-coordinate distance from the shallow prefix width within
+    which a visible flank end triggers the rescan."""
+
+    shallow: Tuple[int, int]
+    deep: Optional[Tuple[int, int]] = None
+    trigger_margin: int = 0
 
 
 def make_ends_engine(groups, plan: Optional[EndsPlan], **engine_kwargs):
-    """Engine for an ends plan: plain ends engine (no deep tier) or the
-    two-tier engine.  ``plan=None`` (whole-read scan) is not ported."""
+    """Engine for an ends plan: plain whole-read scan (plan None), plain
+    ends engine (no deep tier), or the two-tier engine."""
     if plan is None:
-        raise NotImplementedError(f"the whole-read scan is {_NOT_PORTED}")
+        return TorchDemuxEngine(groups, **engine_kwargs)
     if plan.deep:
         return TwoTierDemuxEngine(groups, plan, **engine_kwargs)
     return TorchDemuxEngine(groups, ends_window=plan.shallow, **engine_kwargs)

@@ -1,18 +1,20 @@
 """The fused per-batch demux call, in PyTorch around the three kernels.
 
-Counterpart of :func:`barbell_tpu.ops.composite.demux_call`, production
-branch only: 2-bit concatenated rows with device-derived metadata
-(``pack_mode=2``, ``meta_mode='desc'``), the kernel path for every DP
-stage, and strand-split barcode-rank lanes.  One call per (group,
-batch) runs flank scan -> hit compaction -> flank traceback ->
-barcode-window mapping -> barcode rank -> winner interval mapping and
-returns the same flat int32 buffer: ``[H_cap * wire-record lanes] ++
-[ceil(R/32) overflow-bitmask words] ++ [total]``.
+Counterpart of :func:`barbell_tpu.ops.composite.demux_call` on its
+kernel path: 2-bit concatenated rows with device-derived metadata
+(``pack_mode=2``, ``meta_mode='desc'``), whole-read scans (``ends_w =
+0``, with chunk rows) and ends scans, and barcode-rank lanes split by
+strand when ``H_cap % 256 == 0`` or ranked against both strands'
+patterns otherwise.  One call per (group, batch) runs flank scan -> hit
+compaction -> flank traceback -> barcode-window mapping -> barcode rank
+-> winner interval mapping and returns the same flat int32 buffer:
+``[H_cap * wire-record lanes] ++ [ceil(R/32) overflow-bitmask words] ++
+[total]``.
 
 Row coordinate model: every row holds its text in columns
 ``[tsc, tec]`` (forward rows left-aligned at 0; on-device rc twins
-right-aligned ending at L).  Chunk rows (tag 3 descriptors) exist only
-in full-scan batches, which this port does not run; see ROADMAP.md.
+right-aligned ending at L; host-built chunk rows of both strands
+left-aligned).
 """
 
 from __future__ import annotations
@@ -20,11 +22,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from barbell_tpu.ops.oracle import COST_SCALE
-
 from .myers import TOPK as MYERS_TOPK
 from .myers import myers_topk
-from .rank import rank_pass1
+from .oracle import COST_SCALE
+from .rank import rank_pass1, rank_pass1_split
 from .window import VTOPK as WIN_VTOPK
 from .window import window_interval, window_trace, window_valleys
 
@@ -97,6 +98,72 @@ META_COLS = 13
 (M_TSC, M_TEC, M_TSTART, M_TEND, M_LO, M_HI, M_OFF, M_N, M_ISRC,
  M_FSIMPLE, M_BASEROW, M_NCHUNKS, M_ENDS) = range(META_COLS)
 
+# Packed layout of chunk-row metadata: 6 int32 lanes per row.
+# tsc/tec/lo/hi+1 are row coordinates <= MAX_ROW_LEN (8192) < 2**14,
+# off/n/fsimple keep 32 bits, baserow < 2**16 rows, nchunks < 2**15.
+META_WIRE_COLS = 6
+
+
+def pack_meta_np(meta) -> np.ndarray:
+    """[R, META_COLS] logical int32 -> [R, META_WIRE_COLS] packed int32."""
+    m = np.ascontiguousarray(meta, dtype=np.int64)
+    tsc, tec = m[:, M_TSC], m[:, M_TEC]
+    lo, hi = m[:, M_LO], m[:, M_HI]
+    baserow, nch = m[:, M_BASEROW], m[:, M_NCHUNKS]
+    # exceptions, not asserts: an overflow would bleed into the next
+    # bit field (wrong cover rows -> windows from unrelated reads)
+    if not (
+        tsc.min(initial=0) >= 0
+        and lo.min(initial=0) >= 0
+        and hi.min(initial=0) >= -1
+        and baserow.min(initial=0) >= 0
+        and max(tsc.max(initial=0), tec.max(initial=0),
+                lo.max(initial=0), hi.max(initial=0) + 1) < 1 << 14
+    ):
+        raise ValueError("row coordinate exceeds the 14-bit meta field")
+    if baserow.max(initial=0) >= 1 << 16:
+        raise ValueError("baserow exceeds the 16-bit meta field")
+    if nch.min(initial=0) < 0 or nch.max(initial=0) >= 1 << 15:
+        raise ValueError("nchunks exceeds the 15-bit meta field")
+    lane1 = (
+        lo
+        | ((m[:, M_TSTART] != 0) << 14)
+        | ((m[:, M_TEND] != 0) << 15)
+        | ((hi + 1) << 16)
+        | ((m[:, M_ISRC] != 0) << 30)
+        | ((m[:, M_ENDS] != 0).astype(np.int64) << 31)
+    )
+    out = np.empty((m.shape[0], META_WIRE_COLS), dtype=np.int32)
+    out[:, 0] = tsc | (tec << 16)
+    out[:, 1] = (lane1 & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+    out[:, 2] = m[:, M_OFF]
+    out[:, 3] = m[:, M_N]
+    out[:, 4] = m[:, M_FSIMPLE]
+    out[:, 5] = baserow | (nch << 16)
+    return out
+
+
+def _unpack_meta(meta):
+    """Device-side inverse of :func:`pack_meta_np` -> [R, META_COLS].
+    torch's ``>>`` on int32 is arithmetic, like jnp's: the masks below
+    keep every field exact (``c0 >= 0``; M_ENDS is the sign bit)."""
+    c0, c1, c5 = meta[:, 0], meta[:, 1], meta[:, 5]
+    cols = [None] * META_COLS
+    cols[M_TSC] = c0 & 0xFFFF
+    cols[M_TEC] = c0 >> 16
+    cols[M_TSTART] = (c1 >> 14) & 1
+    cols[M_TEND] = (c1 >> 15) & 1
+    cols[M_LO] = c1 & 0x3FFF
+    cols[M_HI] = ((c1 >> 16) & 0x3FFF) - 1
+    cols[M_OFF] = meta[:, 2]
+    cols[M_N] = meta[:, 3]
+    cols[M_ISRC] = (c1 >> 30) & 1
+    cols[M_FSIMPLE] = meta[:, 4]
+    cols[M_BASEROW] = c5 & 0xFFFF
+    cols[M_NCHUNKS] = c5 >> 16
+    cols[M_ENDS] = (c1 >> 31) & 1
+    return torch.stack(cols, dim=1).to(torch.int32)
+
 
 def _complement_masks(m):
     """Nibble complement (A<->T, C<->G = bit reversal), elementwise."""
@@ -123,16 +190,25 @@ def _window_cols(rows, starts, W):
     )
 
 
-def _derive_meta(rowdesc, S_pad: int, L: int, ends_w: int, ends_wr: int,
-                 halo: int, padding: int):
+def _derive_meta(rowdesc, chunk_meta, S_pad: int, L: int, ends_w: int,
+                 ends_wr: int, halo: int, padding: int):
     """Per-row metadata [R_host + S_pad, META_COLS] from the 4-byte/row
-    descriptor: low 2 bits a type tag (0 simple forward read, 1 ends
-    PREFIX row, 2 ends SUFFIX row, always right after its prefix), the
-    rest the read length ``n`` (0 for padding rows).  Rows
-    ``[R_host, R_host + S_pad)`` are the flip+complement twins of host
-    rows ``[0, S_pad)``: a tag-0 twin is the rc simple row, a tag-1 twin
-    the RC SUFFIX window, a tag-2 twin the RC PREFIX window.  Must match
-    the host planner (``_materialize``)."""
+    descriptor: low 2 bits a type tag, the rest a payload —
+
+    * tag 0: simple forward read, payload = read length ``n`` (0 for
+      padding rows, which are invalid);
+    * tag 1: ends PREFIX row of a long read, payload = ``n``;
+    * tag 2: ends SUFFIX row (always right after its prefix), payload
+      = ``n``;
+    * tag 3: chunk row of a long read (whole-read scan), payload =
+      index into ``chunk_meta``, the :func:`pack_meta_np` table of the
+      chunk rows (the only rows whose metadata is not length-derived).
+
+    Rows ``[R_host, R_host + S_pad)`` are the flip+complement twins of
+    host rows ``[0, S_pad)``: a tag-0 twin is the rc simple row, a tag-1
+    twin the RC SUFFIX window, a tag-2 twin the RC PREFIX window, and a
+    tag-3 twin is invalid (chunk rows ship both strands from the host).
+    Must match the host planner (``_materialize``)."""
     dev = rowdesc.device
     R_host = rowdesc.shape[0]
     tag = rowdesc & 3
@@ -140,13 +216,18 @@ def _derive_meta(rowdesc, S_pad: int, L: int, ends_w: int, ends_wr: int,
     Wl = ends_w
     Wr = ends_wr if ends_wr else ends_w
     rowid = torch.arange(R_host, dtype=torch.int32, device=dev)
+    cm = _unpack_meta(chunk_meta)
+    ci = n.clamp(0, chunk_meta.shape[0] - 1).long()
 
     def build(block_tag, block_n, block_row, twin: bool):
         is_simple = block_tag == 0
         is_pre = block_tag == 1
         is_suf = block_tag == 2
+        is_chunk = block_tag == 3
         is_ends = is_pre | is_suf
-        valid = (block_n > 0) & (block_tag != 3)
+        valid = block_n > 0
+        if twin:
+            valid = valid & ~is_chunk
         z = torch.zeros_like(block_n)
         # Suffix-claim start, row-local: the prefix (width Wl) claims
         # end positions [0, Wl-1-PADDING] and the suffix (width Wr)
@@ -193,7 +274,11 @@ def _derive_meta(rowdesc, S_pad: int, L: int, ends_w: int, ends_wr: int,
         cols[M_BASEROW] = torch.where(valid, base, 0)
         cols[M_NCHUNKS] = torch.where(is_ends, 2, 1)
         cols[M_ENDS] = (is_ends & valid).to(torch.int32)
-        return torch.stack([c.to(torch.int32) for c in cols], dim=1)
+        out = torch.stack([c.to(torch.int32) for c in cols], dim=1)
+        if not twin:
+            # splice the real chunk metadata over tag-3 host rows
+            out = torch.where(is_chunk[:, None], cm[ci], out)
+        return out
 
     host = build(tag, n, rowid, twin=False)
     twin = build(tag[:S_pad], n[:S_pad], rowid[:S_pad], twin=True)
@@ -301,9 +386,10 @@ def demux_call(
     patterns_all,  # [2P, plen] u8: fwd pattern stack then rc stack
     host_packed,  # [T] u8 concatenated 2-bit row codes
     rowdesc,  # [R_host] int32 row descriptors
+    chunk_meta,  # [C, META_WIRE_COLS] int32 packed chunk-row metadata
     exc,  # [E, 2] int32 (flat_pos, mask) exceptions
     *,
-    gi: tuple,  # (alpha, mask_a, mask_b, k1, iv_a, iv_b) ints
+    gi: tuple,  # (alpha, mask_a, mask_b, k1, iv_a, iv_b, step) ints
     gf: tuple,  # (perfect, min_score, min_score_diff) floats
     K: int,
     m: int,
@@ -315,29 +401,27 @@ def demux_call(
     H_cap: int,  # hit-lane capacity (strand halves of H_cap / 2)
     padding: int,  # barcode window padding (PADDING)
     L_rows: int,  # row width
-    ends_w: int,  # ends mode: PREFIX window width
+    ends_w: int,  # ends mode: PREFIX window width (0 = whole-read scan)
     ends_wr: int,  # SUFFIX window width (0 = symmetric)
     halo: int,  # flank halo
     S_pad: int,  # twin-block rows
 ):
     """The full demux pipeline for one (group, batch); see the module
-    doc for the output layout.  Hits beyond a strand half of H_cap are
-    dropped — the caller checks ``total <= H_cap`` and retries with a
-    larger capacity."""
-    if Wb > 255 or H_cap % 256:
-        raise ValueError(
-            f"strand-split rank lanes need Wb <= 255 and H_cap % 256 == 0 "
-            f"(Wb={Wb}, H_cap={H_cap}); the non-split path is not ported"
-        )
-    if ends_w <= 0:
-        raise ValueError("demux_call runs ends-mode batches only (ends_w > 0)")
+    doc for the output layout.  Hits beyond H_cap (or, with strand-split
+    lanes, beyond a strand half of it) are dropped — the caller checks
+    ``total <= H_cap`` and retries with a larger capacity."""
+    if Wb > 255:
+        raise ValueError(f"the rank key packs positions in 8 bits (Wb={Wb})")
     dev = host_packed.device
     i32 = torch.int32
-    alpha_scaled, mask_a, mask_b, k1_scaled, iv_a, iv_b = (int(v) for v in gi)
+    alpha_scaled, mask_a, mask_b, k1_scaled, iv_a, iv_b, step = (
+        int(v) for v in gi
+    )
     # f32-exact floats: comparisons against them run in f32
     perfect, min_score, min_score_diff = gf
 
-    meta = _derive_meta(rowdesc, S_pad, L_rows, ends_w, ends_wr, halo, padding)
+    meta = _derive_meta(rowdesc, chunk_meta, S_pad, L_rows, ends_w, ends_wr,
+                        halo, padding)
     R_host = rowdesc.shape[0]
     hlen = meta[:R_host, M_TEC]
     nb = (hlen + 3) >> 2
@@ -371,31 +455,41 @@ def demux_call(
         alpha_scaled, K, m, k_units,
     )
 
-    # ---- compact valid hits into strand-split lanes --------------------
-    # fwd hits in lanes [0, H_cap/2), rc hits in [H_cap/2, H_cap), each
-    # in flat (row-major, then slot) order via cumsum + scatter; a lane
-    # is meaningful iff its index < its strand's count.
+    # ---- compact valid hits into lanes ---------------------------------
+    # Valid hits take lanes in flat (row-major, then slot) order via
+    # cumsum + scatter; a lane is meaningful iff its index < the count.
+    # Strand-split (H_cap % 256 == 0): fwd hits in lanes [0, H_cap/2),
+    # rc hits in [H_cap/2, H_cap), so the rank kernel evaluates only the
+    # lane's own strand's P patterns instead of all 2P.
+    split = H_cap % 256 == 0
     flat_valid = (key_top < BIG).reshape(-1)
     total = flat_valid.sum(dtype=i32)
     flat_idx = torch.arange(R * K, dtype=i32, device=dev)
     half = H_cap // 2
 
-    def compact(valid):
+    def compact(valid, cap):
         pos = torch.cumsum(valid.to(i32), 0) - 1
-        pos = torch.where(valid & (pos < half), pos, half).long()  # spill slot
-        out = torch.zeros(half + 1, dtype=i32, device=dev)
+        pos = torch.where(valid & (pos < cap), pos, cap).long()  # spill slot
+        out = torch.zeros(cap + 1, dtype=i32, device=dev)
         out[pos] = flat_idx
-        return out[:half]
+        return out[:cap]
 
-    rc_flat = (meta[:, M_ISRC] != 0).repeat_interleave(K)
-    fwd_valid = flat_valid & ~rc_flat
-    take = torch.cat([compact(fwd_valid), compact(flat_valid & rc_flat)])
-    n_fwd = fwd_valid.sum(dtype=i32)
-    n_rc = total - n_fwd
-    # either half overflowing must trigger the caller's retry
-    total_out = torch.maximum(total, 2 * torch.maximum(n_fwd, n_rc))
     lane = torch.arange(H_cap, device=dev)
-    hvalid = torch.where(lane < half, lane < n_fwd, lane - half < n_rc)
+    if split:
+        rc_flat = (meta[:, M_ISRC] != 0).repeat_interleave(K)
+        fwd_valid = flat_valid & ~rc_flat
+        take = torch.cat(
+            [compact(fwd_valid, half), compact(flat_valid & rc_flat, half)]
+        )
+        n_fwd = fwd_valid.sum(dtype=i32)
+        n_rc = total - n_fwd
+        # either half overflowing must trigger the caller's retry
+        total_out = torch.maximum(total, 2 * torch.maximum(n_fwd, n_rc))
+        hvalid = torch.where(lane < half, lane < n_fwd, lane - half < n_rc)
+    else:
+        take = compact(flat_valid, H_cap)
+        total_out = total
+        hvalid = lane < total
     hrow = take // K
     hkey = key_top.reshape(-1)[take.long()]
     hcol = torch.where(hvalid, hkey % L_key, 0)
@@ -430,33 +524,51 @@ def demux_call(
     has2 = hvalid & (rhi >= 0) & (bend > bstart)
     fs_text = s_text + f_ts
 
-    # The barcode window's forward cover row: a simple read's own row,
-    # or for ends rows baserow (prefix, width Wl, text offset 0) or
-    # baserow+1 (suffix, width Wr, offset n - Wr), decided by
-    # bstart >= n - Wr alone.
-    wr_eff = ends_wr if ends_wr else ends_w
-    suf = (hm[:, M_ENDS] != 0) & (bstart >= h_n - wr_eff)
-    foff = torch.where(suf, h_n - wr_eff, 0)
-    frow = torch.where(
-        hm[:, M_FSIMPLE] >= 0, hm[:, M_FSIMPLE], hm[:, M_BASEROW] + suf.to(i32)
+    # The barcode window's forward cover row: a simple read's own row;
+    # for chunk rows the chunk k = bstart // step of the read's forward
+    # cover rows (baserow + k, text offset k * step); for ends rows
+    # baserow (prefix, width Wl, text offset 0) or baserow + 1 (suffix,
+    # width Wr, offset n - Wr), decided by bstart >= n - Wr alone.
+    simple = hm[:, M_FSIMPLE] >= 0
+    k_idx = bstart // step if step > 0 else torch.zeros_like(bstart)
+    k_idx = torch.minimum(
+        k_idx.clamp(min=0), torch.clamp(hm[:, M_NCHUNKS] - 1, min=0)
     )
+    foff = torch.where(simple, 0, k_idx * step)
+    if ends_w:
+        wr_eff = ends_wr if ends_wr else ends_w
+        is_ends = hm[:, M_ENDS] != 0
+        suf = is_ends & (bstart >= h_n - wr_eff)
+        k_idx = torch.where(is_ends, suf.to(i32), k_idx)
+        foff = torch.where(is_ends, torch.where(suf, h_n - wr_eff, 0), foff)
+    frow = torch.where(simple, hm[:, M_FSIMPLE], hm[:, M_BASEROW] + k_idx)
     frow = frow.clamp(0, R - 1)
     b_startw = torch.clamp(bstart - foff, min=0)
     b_len = torch.where(has2, bend - bstart, 0)
 
-    # ---- barcode rank: each lane against its own strand's patterns -----
+    # ---- barcode rank --------------------------------------------------
     windows = _gather_windows(rows, frow, b_startw, Wb)
     jposb = torch.arange(Wb, device=dev)
     windows = torch.where(jposb[None, :] < b_len[:, None], windows, 0).to(torch.uint8)
-    key2, lodhi_best = rank_pass1(patterns_all, windows, b_len, split=half)
+    if split:
+        # [H, P] strand-local: each lane against its own strand's stack
+        key2, lodhi_best = rank_pass1_split(patterns_all, windows, b_len, half)
+        lane_mask = torch.ones(key2.shape, dtype=torch.bool, device=dev)
+        strand_off = torch.where(h_isrc != 0, P, 0).to(i32)
+    else:
+        # [H, 2P] against both stacks, masked to the lane's own strand
+        key2, lodhi_best = rank_pass1(patterns_all, windows, b_len)
+        lane_mask = (
+            torch.arange(2 * P, device=dev)[None, :] // P == h_isrc[:, None]
+        )
+        strand_off = torch.zeros(H_cap, dtype=i32, device=dev)
     best_cost = key2 // 256
     best_pos = key2 % 256
-    strand_off = torch.where(h_isrc != 0, P, 0).to(i32)
 
-    in_k1 = best_cost <= k1_scaled
+    in_k1 = (best_cost <= k1_scaled) & lane_mask
     matched = in_k1.sum(dim=1)
     use_all = matched <= 1
-    cand = (use_all[:, None] | in_k1) & has2[:, None]
+    cand = (use_all[:, None] | in_k1) & has2[:, None] & lane_mask
     # divide by a device tensor: a CPU-scalar divisor may become a
     # reciprocal multiply on CUDA, which rounds differently
     scores = torch.where(

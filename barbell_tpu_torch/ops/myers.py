@@ -1,17 +1,23 @@
-"""Interior flank scan: bit-parallel Myers search with top-8 valley keys.
+"""Interior flank scan: bit-parallel Myers search for flank valleys.
 
-Counterpart of :mod:`barbell_tpu.ops.pallas_myers` in its top-K mode
-(``myers_topk_from_words``).  Unit-cost semiglobal search of one IUPAC
-flank over every row (column-0 boundary ``i``, no overhang alpha); a
-position ``j`` inside ``[emit_lo, emit_hi]`` is a valley when its end
-cost ``e <= k`` and ``e <= e[j-1]`` and ``e < e[j+1]``.  Position 0 is
-never emitted and positions are decided for ``j < L`` only.  Per row the
-8 lowest keys ``cost * klmul + j`` come back sorted ascending with
-``2**30`` sentinels, plus the exact valley count (``count > 8`` means
-dropped valleys: callers treat it as overflow).
+Counterpart of :mod:`barbell_tpu.ops.pallas_myers` in both its modes.
+Unit-cost semiglobal search of one IUPAC flank over every row (column-0
+boundary ``i``, no overhang alpha); a position ``j`` inside ``[emit_lo,
+emit_hi]`` is a valley when its end cost ``e <= k`` and ``e <= e[j-1]``
+and ``e < e[j+1]``.  Position 0 is never emitted and positions are
+decided for ``j < L`` only.
 
-:func:`myers_topk` launches the CUDA kernel (``csrc/myers.cu``) for CUDA
-tensors and runs :func:`myers_topk_plain` for CPU tensors.
+* :func:`myers_topk` (``myers_topk_from_words``): per row the 8 lowest
+  keys ``cost * klmul + j`` sorted ascending with ``2**30`` sentinels,
+  plus the exact valley count (``count > 8`` means dropped valleys:
+  callers treat it as overflow).  The flank scan of every path.
+* :func:`myers_valleys` (``myers_valleys`` / ``myers_valleys_from_words``):
+  the u8 valley-cost map [R, L], 255 where ``j`` is no valley.  No path
+  of either package calls it; it is held to its Pallas counterpart.
+
+Each launches the CUDA kernel (``csrc/myers.cu``) for CUDA tensors and
+runs its plain version (:func:`myers_topk_plain`,
+:func:`myers_valleys_plain`) for CPU tensors.
 """
 
 from __future__ import annotations
@@ -39,11 +45,11 @@ def pattern_words(pattern_masks: np.ndarray):
     return words, W, (m - 1) % 32
 
 
-def myers_topk_plain(patw, m: int, rows, emit_lo, emit_hi, k_units: int,
-                     klmul: int):
-    """Plain PyTorch version: the same recurrence in int64 lanes masked
-    to 32 bits (torch has no unsigned add-with-carry or logical shift on
-    int32), vectorized over rows, one text position at a time."""
+def _valleys_plain(patw, m: int, rows, emit_lo, emit_hi, k_units: int):
+    """(valley [R, L] bool, cost [R, L] int64) by the Myers recurrence in
+    int64 lanes masked to 32 bits (torch has no unsigned add-with-carry
+    or logical shift on int32), vectorized over rows, one text position
+    at a time."""
     R, L = rows.shape
     dev = rows.device
     W = patw.shape[1]
@@ -61,7 +67,8 @@ def myers_topk_plain(patw, m: int, rows, emit_lo, emit_hi, k_units: int,
     e_prev = torch.full((R,), 2**20, dtype=torch.int64, device=dev)
     lo = emit_lo.to(torch.int64)
     hi = emit_hi.to(torch.int64)
-    keys = torch.full((R, L), BIG, dtype=torch.int64, device=dev)
+    valleys = torch.zeros((R, L), dtype=torch.bool, device=dev)
+    costs = torch.zeros((R, L), dtype=torch.int64, device=dev)
     for j in range(L):
         eqs = lut[text[:, j]]
         sc = torch.zeros(R, dtype=torch.int64, device=dev)
@@ -94,10 +101,22 @@ def myers_topk_plain(patw, m: int, rows, emit_lo, emit_hi, k_units: int,
             (e_cur <= k_units) & (e_cur <= e_prev) & (e_cur < e_next)
             & (lo <= j) & (hi >= j)
         )
-        keys[:, j] = torch.where(valley, e_cur * klmul + j, BIG)
+        valleys[:, j] = valley
+        costs[:, j] = e_cur
         e_prev = e_cur
         e_cur = e_next
-    count = (keys < BIG).sum(dim=1)
+    return valleys, costs
+
+
+def myers_topk_plain(patw, m: int, rows, emit_lo, emit_hi, k_units: int,
+                     klmul: int):
+    """Plain PyTorch version of :func:`myers_topk`."""
+    R, L = rows.shape
+    dev = rows.device
+    valleys, costs = _valleys_plain(patw, m, rows, emit_lo, emit_hi, k_units)
+    jpos = torch.arange(L, device=dev)[None, :]
+    keys = torch.where(valleys, costs * klmul + jpos, BIG)
+    count = valleys.sum(dim=1)
     top = keys.sort(dim=1).values[:, :TOPK]
     if top.shape[1] < TOPK:
         top = torch.cat(
@@ -106,6 +125,20 @@ def myers_topk_plain(patw, m: int, rows, emit_lo, emit_hi, k_units: int,
             dim=1,
         )
     return top.to(torch.int32), count.to(torch.int32)
+
+
+def _check(patw, m: int, rows, name: str):
+    """(R, L, W) after checking what the kernel assumes of its inputs."""
+    dev = rows.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    R, L = rows.shape
+    W = patw.shape[1]
+    if not 1 <= W <= 4 or W != (m + 31) // 32:
+        raise ValueError(f"{name}: flank length {m} needs 1-4 words, got W={W}")
+    if L % 16 or rows.data_ptr() % 16:
+        raise ValueError(f"{name}: rows need L % 16 == 0 and 16-byte alignment")
+    return R, L, W
 
 
 def myers_topk(patw, m: int, rows, emit_lo, emit_hi, k_units: int,
@@ -118,14 +151,7 @@ def myers_topk(patw, m: int, rows, emit_lo, emit_hi, k_units: int,
     dev = rows.device
     if dev.type == "cpu":
         return myers_topk_plain(patw, m, rows, emit_lo, emit_hi, k_units, klmul)
-    if dev.type != "cuda":
-        raise ValueError(f"myers_topk: unsupported device {dev}")
-    R, L = rows.shape
-    W = patw.shape[1]
-    if not 1 <= W <= 4 or W != (m + 31) // 32:
-        raise ValueError(f"myers_topk: flank length {m} needs 1-4 words, got W={W}")
-    if L % 16 or rows.data_ptr() % 16:
-        raise ValueError("myers_topk: rows need L % 16 == 0 and 16-byte alignment")
+    R, L, W = _check(patw, m, rows, "myers_topk")
     lib = _build.load()
     keys = torch.empty((R, TOPK), dtype=torch.int32, device=dev)
     cnt = torch.empty(R, dtype=torch.int32, device=dev)
@@ -147,3 +173,40 @@ def myers_topk(patw, m: int, rows, emit_lo, emit_hi, k_units: int,
 
 
 myers_topk.launches = 0
+
+
+def myers_valleys_plain(patw, m: int, rows, emit_lo, emit_hi, k_units: int):
+    """Plain PyTorch version of :func:`myers_valleys`."""
+    valleys, costs = _valleys_plain(patw, m, rows, emit_lo, emit_hi, k_units)
+    return torch.where(valleys, costs, 255).to(torch.uint8)
+
+
+def myers_valleys(patw, m: int, rows, emit_lo, emit_hi, k_units: int):
+    """Valley-cost map [R, L] uint8: the end cost in edit units where
+    position ``j`` is a valley, 255 elsewhere.  Arguments as in
+    :func:`myers_topk`; ``k_units`` must stay below 255."""
+    dev = rows.device
+    if dev.type == "cpu":
+        return myers_valleys_plain(patw, m, rows, emit_lo, emit_hi, k_units)
+    R, L, W = _check(patw, m, rows, "myers_valleys")
+    if not 0 <= k_units < 255:
+        raise ValueError(f"myers_valleys: k_units {k_units} must be < 255")
+    lib = _build.load()
+    out = torch.empty((R, L), dtype=torch.uint8, device=dev)
+    if R == 0:
+        return out
+    with torch.cuda.device(dev):
+        err = lib.bb_myers_valleys(
+            _build.ptr(rows, "rows", torch.uint8, dev, (R, L)),
+            _build.ptr(patw, "patw", torch.int32, dev, (4, W)),
+            _build.ptr(emit_lo, "emit_lo", torch.int32, dev, (R,)),
+            _build.ptr(emit_hi, "emit_hi", torch.int32, dev, (R,)),
+            out.data_ptr(), R, L, W, (m - 1) % 32, m, int(k_units),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(err, "bb_myers_valleys")
+    _build.count_launch(myers_valleys)
+    return out
+
+
+myers_valleys.launches = 0

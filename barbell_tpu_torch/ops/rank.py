@@ -12,17 +12,17 @@ plateau-valley key ``cost * 256 + j`` with the f32 score at that key.
 giving [H, P] in strand-local pattern indices.  ``split = 0`` ranks
 every lane against every pattern (``rank_pass1``), giving [H, 2P].
 
-:func:`rank_pass1` launches the CUDA kernel (``csrc/rank.cu``) for CUDA
-tensors and runs :func:`rank_pass1_plain` for CPU tensors.
+:func:`rank_pass1` and :func:`rank_pass1_split` launch the CUDA kernel
+(``csrc/rank.cu``) for CUDA tensors, each counting its own launches,
+and run :func:`rank_pass1_plain` for CPU tensors.
 """
 
 from __future__ import annotations
 
 import torch
 
-from barbell_tpu.ops.oracle import COST_SCALE
-
 from .. import _build
+from .oracle import COST_SCALE
 
 UNIT = COST_SCALE
 BIGK = 2**30
@@ -118,16 +118,14 @@ def rank_pass1_plain(patterns, windows, w_len, split: int = 0):
     )
 
 
-def rank_pass1(patterns, windows, w_len, split: int = 0):
-    """(key [H, P] int32, lodhi [H, P] float32); see the module doc.
-
-    ``patterns`` [Pa, m] uint8 IUPAC masks; ``windows`` [H, W] uint8
-    (content left-aligned, zero tail); ``w_len`` [H] valid lengths."""
+def _launch(wrapper, patterns, windows, w_len, split: int):
+    """Launch the kernel and count it on ``wrapper``; CPU tensors take
+    the plain version (and count nothing)."""
     if windows.device.type == "cpu":
         return rank_pass1_plain(patterns, windows, w_len, split)
     dev = windows.device
     if dev.type != "cuda":
-        raise ValueError(f"rank_pass1: unsupported device {dev}")
+        raise ValueError(f"rank: unsupported device {dev}")
     windows, P = _prepare(patterns, windows, split)
     windows = windows.contiguous()
     w_len = w_len.to(torch.int32).contiguous()
@@ -147,8 +145,27 @@ def rank_pass1(patterns, windows, w_len, split: int = 0):
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, "bb_rank")
-    _build.count_launch(rank_pass1)
+    _build.count_launch(wrapper)
     return key, lodhi
 
 
+def rank_pass1(patterns, windows, w_len):
+    """Non-split form: (key [H, 2P] int32, lodhi [H, 2P] float32), every
+    lane against every pattern.
+
+    ``patterns`` [Pa, m] uint8 IUPAC masks; ``windows`` [H, W] uint8
+    (content left-aligned, zero tail); ``w_len`` [H] valid lengths."""
+    return _launch(rank_pass1, patterns, windows, w_len, 0)
+
+
+def rank_pass1_split(patterns, windows, w_len, split: int):
+    """Strand-split form: (key [H, P], lodhi [H, P]) in strand-local
+    pattern indices, lanes ``[0, split)`` against ``patterns[:P]`` and
+    the rest against ``patterns[P:]``."""
+    if split <= 0:
+        raise ValueError(f"rank_pass1_split: split must be > 0, got {split}")
+    return _launch(rank_pass1_split, patterns, windows, w_len, split)
+
+
 rank_pass1.launches = 0
+rank_pass1_split.launches = 0

@@ -21,9 +21,8 @@ from __future__ import annotations
 
 import torch
 
-from barbell_tpu.ops.oracle import COST_SCALE
-
 from .. import _build
+from .oracle import COST_SCALE
 
 UNIT = COST_SCALE
 BIGK = 2**30

@@ -8,27 +8,39 @@ Phases (any failure exits non-zero and prints no result line):
    name and power limit (``nvidia-smi``), the torch and CUDA versions,
    and builds the port's kernels from ``barbell_tpu_torch/csrc`` (the
    first engine then builds the native IO library, outside the timed
-   slice);
-2. kernels — every kernel of the flagship path against its plain
-   PyTorch version on the card, at the flagship shapes plus edge cases
-   (IUPAC N and zero padding, empty emission ranges, rows with more than
-   8 valleys, ``w_len = 0`` lanes, left-edge and ``right_pos`` lanes,
-   the non-split rank form).  Tolerance: none — integers must be equal
-   and Lodhi scores equal bit for bit;
-3. slice — 16384 simulated SQK-RBK114-96 reads through the port's
-   ``demux_using_kit`` in 2048-read batches: every kernel's launch
-   count must be > 0, assigned and correct-of-assigned >= 0.99 against
-   the simulator's truth, and the stage files byte-identical to the
-   scalar oracle backend on the first 128 reads.
+   paths);
+2. kernels at the ends path's shapes — every kernel and mode against
+   its plain PyTorch version on the card, at the flagship shapes plus
+   edge cases (IUPAC N and zero padding, empty emission ranges, rows
+   with more than 8 valleys, ``w_len = 0`` lanes, left-edge and
+   ``right_pos`` lanes), the Myers map mode included;
+3. the ends path — 16384 simulated SQK-RBK114-96 reads through the
+   port's ``demux_using_kit`` (two-tier ends scan) in 2048-read batches;
+4. the whole-read paths — 16448 such reads, every 16th with a 9-20 kb
+   body so that reads outrun the 8192-wide rows and become chunk rows,
+   through the port's ``annotate --kit`` (whole-read scan) and ``kit
+   --full-scan``.  16448 = 8 x 2048 + 64: the last batch's hit capacity
+   is below 256, so it ranks with the non-split rank form;
+5. kernels at the whole-read paths' shapes, recorded from their batches.
 
-The last three lines are a JSON object with each kernel's launches in
-the slice, its largest difference from the plain version and both
-times; the card's name and power limit again; and
+Every path runs with each kernel's launch count set to 0 just before it
+and read just after; every kernel of the path must have launched.
+Each path must assign >= 0.99 of the reads with >= 0.99 correct against
+the simulator's truth, and write stage files byte-identical to the
+scalar oracle backend on its first 128 reads (the whole-read set's
+include 8 chunked reads).  Kernel checks have no tolerance: integers
+must be equal and Lodhi scores equal bit for bit.
+
+The last three lines are a JSON object with each kernel's launches, its
+largest difference from the plain version, its time, its plain
+version's time and its bound (the least time the card could take for
+the same work); the card's name and power limit again; and
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -41,11 +53,27 @@ import numpy as np
 import torch
 
 KIT = "SQK-RBK114-96"
-N_READS = 16384
+N_ENDS = 16384
+N_WHOLE = 16448  # 8 x 2048 + 64
+LONG_EVERY = 16
 BATCH = 2048
 ORACLE_READS = 128
 FLOOR = 0.99
 SEED = 0
+
+# Bounds: the H100 SXM's 3.35 TB/s of HBM, 67 TFLOP/s of f32 outside the
+# tensor cores, and half that for int32 (64 INT32 lanes per SM beside its
+# 128 FP32 lanes), per millisecond.
+BYTES_PER_MS = 3.35e9
+F32_PER_MS = 67e9
+INT_PER_MS = 33.5e9
+# Operations per DP cell (per text position for Myers), counted from the
+# kernels' inner loops; selects count as integer operations.
+MYERS_PER_WORD = 23  # csrc/myers.cu: the add-with-carry step of one word
+MYERS_PER_POS = 15  # text byte, end-cost update, valley test, output
+WINDOW_PER_CELL = {"valley": 9, "trace": 30, "interval": 43}  # csrc/window.cu
+RANK_INT_PER_CELL = 19  # csrc/rank.cu: edit costs, moves, path selects
+RANK_F32_PER_CELL = 8  # the Lodhi update: 5 multiplies, 3 adds
 
 
 def log(msg: str) -> None:
@@ -80,7 +108,7 @@ def probe() -> str:
 
 
 def _flagship_engine():
-    """The slice's shallow-tier engine: its one group plan holds the
+    """The ends path's shallow-tier engine: its one group plan holds the
     kernels' query constants on the card."""
     from barbell_tpu_torch.models.pipeline import TorchDemuxEngine
     from barbell_tpu_torch.stages.kit import kit_groups
@@ -120,6 +148,14 @@ def _diff(got, want) -> float:
     return worst
 
 
+def _bound(n_bytes: float, int_ops: float, f32_ops: float = 0.0):
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate
+    and each type's operations over its peak rate."""
+    t_bytes = n_bytes / BYTES_PER_MS
+    t_ops = max(int_ops / INT_PER_MS, f32_ops / F32_PER_MS)
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def _plant(rng, L, n_rows, pattern, copies):
     """Random base rows with noisy copies of ``pattern``, IUPAC N bytes
     and zero padding tails."""
@@ -138,237 +174,436 @@ def _plant(rng, L, n_rows, pattern, copies):
     return rows
 
 
-def check_kernels(engine) -> list:
-    """Every kernel against its plain version at the flagship shapes."""
-    from barbell_tpu_torch.ops import myers, rank, window
+class KernelCheck:
+    """Each kernel against its plain version on the card, at one path's
+    shapes; ``entries`` collects one JSON entry per kernel and mode."""
 
-    rng = np.random.default_rng(SEED)
-    dev = torch.device("cuda")
-    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
-    UNIT = window.UNIT
-    alpha = engine.alpha_scaled
-    (gp,) = engine.plans
-    m, k = gp.m, gp.k_units
-    flank = gp.tensors.flank
-    patw = gp.tensors.patw
-    results = []
+    def __init__(self, engine, path: str, seed: int):
+        self.rng = np.random.default_rng(seed)
+        self.dev = torch.device("cuda")
+        self.alpha = engine.alpha_scaled
+        (self.gp,) = engine.plans
+        self.path = path
+        self.entries = []
 
-    def record(name, source, replaces, run_kernel, run_plain, reps=20):
+    def t(self, a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.dev)
+
+    def record(self, name, source, replaces, shape, run_kernel, run_plain,
+               bound, reps=20):
         tup = lambda x: x if isinstance(x, tuple) else (x,)  # noqa: E731
         got = tup(run_kernel())
         torch.cuda.synchronize()
         want = tup(run_plain())
         torch.cuda.synchronize()
         err = _diff(got, want)
+        run_kernel()  # warm
         ms = _time(run_kernel, reps)
         plain_ms = _time(run_plain, 1)
-        log(f"kernel {name}: equal to plain (max abs err {err}); "
-            f"{ms:.3f} ms vs plain {plain_ms:.1f} ms")
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "max_abs_err": err, "ms": ms,
-                "plain_ms": plain_ms}
+        bound_ms, bound_by = bound
+        log(f"kernel {name} [{self.path}] {shape}: equal to plain (max abs "
+            f"err {err}); {ms:.4f} ms vs plain {plain_ms:.1f} ms; bound "
+            f"{bound_ms:.4f} ms ({bound_by}), {100 * bound_ms / ms:.1f}% of it")
+        entry = {"name": name, "route": "cuda", "source": source,
+                 "replaces": replaces, "path": self.path, "shape": shape,
+                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": bound_ms, "bound_by": bound_by,
+                 # no single PyTorch call computes a Myers scan or these DPs
+                 "library_ms": None}
+        self.entries.append(entry)
+        return entry
 
-    # --- Myers interior scan: shallow rows [8192, 512]; deep rows
-    # [1024, 1024] where some rows carry 10 flank copies (> 8 valleys)
-    for R, L, copies in ((8192, 512, 2), (1024, 1024, 10)):
-        rows = t(_plant(rng, L, R, gp.flank, copies))
+    # --- Myers interior scan, both modes
+    def myers(self, R, L, copies, valleys=True):
+        from barbell_tpu_torch.ops import myers, window
+
+        gp, rng = self.gp, self.rng
+        rows = self.t(_plant(rng, L, R, gp.flank, copies))
         lo = rng.integers(0, 120, R).astype(np.int32)
         hi = (L - 1 - rng.integers(0, 40, R)).astype(np.int32)
         lo[:16], hi[:16] = 300, 100  # empty emission ranges
-        lo, hi = t(lo), t(hi)
-        klmul = UNIT * (L + 2)
-        args = (patw, m, rows, lo, hi, k, klmul)
-        entry = record(
-            "myers_topk", "barbell_tpu_torch/csrc/myers.cu",
-            "barbell_tpu/ops/pallas_myers.py:71",
+        lo, hi = self.t(lo), self.t(hi)
+        klmul = window.UNIT * (L + 2)
+        W = gp.tensors.patw.shape[1]
+        ops = R * L * (MYERS_PER_WORD * W + MYERS_PER_POS)
+        shape = f"rows [{R}, {L}], m = {gp.m}"
+        src, rep = "barbell_tpu_torch/csrc/myers.cu", "barbell_tpu/ops/pallas_myers.py:71"
+        args = (gp.tensors.patw, gp.m, rows, lo, hi, gp.k_units, klmul)
+        self.record(
+            "myers_topk", src, rep + " (top-K mode, via :318)", shape,
             lambda: myers.myers_topk(*args),
             lambda: myers.myers_topk_plain(*args),
+            _bound(R * L + 8 * R + 36 * R, ops),
         )
         cnt = myers.myers_topk(*args)[1]
-        log(f"  rows {R}x{L}: {int((cnt > myers.TOPK).sum())} rows with > 8 "
-            f"valleys, {int((cnt == 0).sum())} with none")
-        if R == 8192:
-            results.append(entry)
+        log(f"  rows {R}x{L}: {int((cnt > myers.TOPK).sum())} rows with "
+            f"> 8 valleys, {int((cnt == 0).sum())} with none")
+        if valleys:
+            vargs = (gp.tensors.patw, gp.m, rows, lo, hi, gp.k_units)
+            mp = myers.myers_valleys(*vargs)
+            log(f"  map {R}x{L}: {int((mp < 255).sum())} valleys")
+            self.record(
+                "myers_valleys", src, rep + " (map mode, via :253/:270)", shape,
+                lambda: myers.myers_valleys(*vargs),
+                lambda: myers.myers_valleys_plain(*vargs),
+                _bound(2 * R * L + 8 * R, ops),
+            )
 
-    # --- window valley: 2R = 16384 boundary lanes of width m + k + 3
-    H, Wb = 16384, m + k + 3
-    wins = t(_plant(rng, Wb, H, gp.flank, 1))
-    w_len = np.full(H, Wb, dtype=np.int32)
-    ledge = rng.integers(0, 2, H).astype(np.int32)
-    rpos = np.where(rng.integers(0, 2, H) != 0, Wb, -1).astype(np.int32)
-    elo = rng.integers(0, 8, H).astype(np.int32)
-    ehi = (Wb - rng.integers(0, 8, H)).astype(np.int32)
-    elo[:32], ehi[:32] = 50, 10
-    vargs = (flank, wins, t(w_len), t(ledge), t(rpos), t(elo), t(ehi),
-             alpha, k * UNIT, 512 + 2)
-    results.append(record(
-        "window_valleys", "barbell_tpu_torch/csrc/window.cu",
-        "barbell_tpu/ops/pallas_window.py:51",
-        lambda: window.window_valleys(*vargs),
-        lambda: window.window_plain(
-            window.MODE_VALLEY, flank, vargs[1], vargs[5], vargs[3], vargs[4],
-            vargs[6], vargs[2], alpha, 0, 0, k * UNIT, 514),
-    ))
+    # --- window valley over the boundary lanes (width m + k + 3)
+    def window_valleys(self, H):
+        from barbell_tpu_torch.ops import window
 
-    # --- window trace: ~2816 hit lanes over Wf = m + k + 1 columns
-    H, Wf = 2816, gp.span
-    twin = _plant(rng, Wf, H, gp.flank, 1)
-    end_j = rng.integers(m - 10, Wf + 1, H).astype(np.int32)
-    end_j[:8] = 0
-    for h in range(H):
-        twin[h, end_j[h]:] = 0
-    ledge = rng.integers(0, 2, H).astype(np.int32)
-    rpos = np.where(rng.integers(0, 2, H) != 0, end_j, -1).astype(np.int32)
-    ra, rb = gp.mask_start, gp.mask_end
-    targs = (flank, t(twin), t(end_j), t(ledge), t(rpos), alpha, ra, rb)
-    z = torch.zeros(H, dtype=torch.int32, device=dev)
-    results.append(record(
-        "window_trace", "barbell_tpu_torch/csrc/window.cu",
-        "barbell_tpu/ops/pallas_window.py:51",
-        lambda: torch.stack(window.window_trace(*targs), dim=1),
-        lambda: window.window_plain(
-            window.MODE_TRACE, flank, targs[1], targs[2], targs[3], targs[4],
-            z, z, alpha, ra, rb, 0, 0),
-    ))
+        gp, rng, t = self.gp, self.rng, self.t
+        m, k, Wb = gp.m, gp.k_units, gp.m + gp.k_units + 3
+        wins = t(_plant(rng, Wb, H, gp.flank, 1))
+        w_len = np.full(H, Wb, dtype=np.int32)
+        ledge = rng.integers(0, 2, H).astype(np.int32)
+        rpos = np.where(rng.integers(0, 2, H) != 0, Wb, -1).astype(np.int32)
+        elo = rng.integers(0, 8, H).astype(np.int32)
+        ehi = (Wb - rng.integers(0, 8, H)).astype(np.int32)
+        elo[:32], ehi[:32] = 50, 10
+        flank = gp.tensors.flank
+        U = window.UNIT
+        vargs = (flank, wins, t(w_len), t(ledge), t(rpos), t(elo), t(ehi),
+                 self.alpha, k * U, 512 + 2)
+        self.record(
+            "window_valleys", "barbell_tpu_torch/csrc/window.cu",
+            "barbell_tpu/ops/pallas_window.py:51 (MODE_VALLEY, via :357)",
+            f"[{H} lanes, {Wb}], m = {m}",
+            lambda: window.window_valleys(*vargs),
+            lambda: window.window_plain(
+                window.MODE_VALLEY, flank, vargs[1], vargs[5], vargs[3],
+                vargs[4], vargs[6], vargs[2], self.alpha, 0, 0, k * U, 514),
+            _bound(m + H * Wb + 20 * H + 36 * H,
+                   H * Wb * m * WINDOW_PER_CELL["valley"]),
+        )
 
-    # --- barcode windows shared by interval and rank: [2816, Wb = 66]
-    Wbc = gp.barcode_window
-    pats_all = gp.tensors.patterns_all
-    pick = rng.integers(0, pats_all.shape[0], H)
-    bwin = np.zeros((H, Wbc), dtype=np.uint8)
-    b_len = rng.integers(gp.plen - 4, Wbc + 1, H).astype(np.int32)
-    b_len[:16] = 0  # w_len = 0 lanes
-    planted = _plant(rng, Wbc, H, gp.patterns_all[0], 0)
-    for h in range(H):
-        row = planted[h].copy()
-        pos = int(rng.integers(0, 12))
-        seg = gp.patterns_all[pick[h]][: Wbc - pos]
-        row[pos : pos + len(seg)] = seg
-        row[b_len[h]:] = 0
-        bwin[h] = row
-    bwin_t, b_len_t = t(bwin), t(b_len)
-    pat_top = pats_all[t(pick).long()]
-    end_top = t(np.minimum(b_len, rng.integers(gp.plen - 6, Wbc + 1, H)).astype(np.int32))
-    iargs = (pat_top, bwin_t, end_top, gp.rel_bar_start, gp.rel_bar_end)
-    results.append(record(
-        "window_interval", "barbell_tpu_torch/csrc/window.cu",
-        "barbell_tpu/ops/pallas_window.py:51",
-        lambda: window.window_interval(*iargs),
-        lambda: window.window_plain(
-            window.MODE_INTERVAL, pat_top, bwin_t, end_top, z, z - 1, z, z,
-            UNIT, gp.rel_bar_start, gp.rel_bar_end, 0, 0),
-    ))
+    # --- window trace over the hit lanes (width Wf = m + k + 1)
+    def window_trace(self, H):
+        from barbell_tpu_torch.ops import window
 
-    # --- rank, strand-split (the slice's form) and non-split (H % 256 != 0)
-    results.append(record(
-        "rank_pass1", "barbell_tpu_torch/csrc/rank.cu",
-        "barbell_tpu/ops/pallas_rank.py:55",
-        lambda: rank.rank_pass1(pats_all, bwin_t, b_len_t, split=H // 2),
-        lambda: rank.rank_pass1_plain(pats_all, bwin_t, b_len_t, split=H // 2),
-    ))
-    Hn = 1000
-    record(
-        "rank_pass1 (non-split)", "barbell_tpu_torch/csrc/rank.cu",
-        "barbell_tpu/ops/pallas_rank.py:55",
-        lambda: rank.rank_pass1(pats_all, bwin_t[:Hn], b_len_t[:Hn]),
-        lambda: rank.rank_pass1_plain(pats_all, bwin_t[:Hn], b_len_t[:Hn]),
-        reps=5,
-    )
+        gp, rng, t = self.gp, self.rng, self.t
+        m, Wf = gp.m, gp.span
+        twin = _plant(rng, Wf, H, gp.flank, 1)
+        end_j = rng.integers(m - 10, Wf + 1, H).astype(np.int32)
+        end_j[:8] = 0
+        for h in range(H):
+            twin[h, end_j[h]:] = 0
+        ledge = rng.integers(0, 2, H).astype(np.int32)
+        rpos = np.where(rng.integers(0, 2, H) != 0, end_j, -1).astype(np.int32)
+        ra, rb = gp.mask_start, gp.mask_end
+        flank = gp.tensors.flank
+        targs = (flank, t(twin), t(end_j), t(ledge), t(rpos), self.alpha, ra, rb)
+        z = torch.zeros(H, dtype=torch.int32, device=self.dev)
+        self.record(
+            "window_trace", "barbell_tpu_torch/csrc/window.cu",
+            "barbell_tpu/ops/pallas_window.py:51 (MODE_TRACE, via :402)",
+            f"[{H} lanes, {Wf}], m = {m}",
+            lambda: torch.stack(window.window_trace(*targs), dim=1),
+            lambda: window.window_plain(
+                window.MODE_TRACE, flank, targs[1], targs[2], targs[3],
+                targs[4], z, z, self.alpha, ra, rb, 0, 0),
+            _bound(m + H * Wf + 12 * H + 12 * H,
+                   H * Wf * m * WINDOW_PER_CELL["trace"]),
+        )
+
+    def _barcode_windows(self, H):
+        """Barcode windows [H, Wb = 66] holding noisy pattern copies, 16
+        ``w_len = 0`` lanes, and each lane's winning pattern."""
+        gp, rng = self.gp, self.rng
+        Wbc = gp.barcode_window
+        pats_all = gp.patterns_all
+        pick = rng.integers(0, pats_all.shape[0], H)
+        bwin = np.zeros((H, Wbc), dtype=np.uint8)
+        b_len = rng.integers(gp.plen - 4, Wbc + 1, H).astype(np.int32)
+        b_len[:16] = 0
+        planted = _plant(rng, Wbc, H, pats_all[0], 0)
+        for h in range(H):
+            row = planted[h].copy()
+            pos = int(rng.integers(0, 12))
+            seg = pats_all[pick[h]][: Wbc - pos]
+            row[pos : pos + len(seg)] = seg
+            row[b_len[h]:] = 0
+            bwin[h] = row
+        return pick, bwin, b_len
+
+    # --- window interval (winning pattern, m = 44) over the hit lanes
+    def window_interval(self, H):
+        from barbell_tpu_torch.ops import window
+
+        gp, rng, t = self.gp, self.rng, self.t
+        pick, bwin, b_len = self._barcode_windows(H)
+        Wbc, plen = gp.barcode_window, gp.plen
+        pat_top = gp.tensors.patterns_all[t(pick).long()]
+        end_top = t(np.minimum(b_len, rng.integers(plen - 6, Wbc + 1, H))
+                    .astype(np.int32))
+        bwin_t = t(bwin)
+        iargs = (pat_top, bwin_t, end_top, gp.rel_bar_start, gp.rel_bar_end)
+        z = torch.zeros(H, dtype=torch.int32, device=self.dev)
+        self.record(
+            "window_interval", "barbell_tpu_torch/csrc/window.cu",
+            "barbell_tpu/ops/pallas_window.py:51 (MODE_INTERVAL, via :434)",
+            f"[{H} lanes, {Wbc}], m = {plen}",
+            lambda: window.window_interval(*iargs),
+            lambda: window.window_plain(
+                window.MODE_INTERVAL, pat_top, bwin_t, end_top, z, z - 1, z,
+                z, window.UNIT, gp.rel_bar_start, gp.rel_bar_end, 0, 0),
+            _bound(H * plen + H * Wbc + 4 * H + 24 * H,
+                   H * Wbc * plen * WINDOW_PER_CELL["interval"]),
+        )
+
+    # --- barcode rank, strand-split (H % 256 == 0) or non-split
+    def rank(self, H, split: bool):
+        from barbell_tpu_torch.ops import rank
+
+        gp, t = self.gp, self.t
+        _pick, bwin, b_len = self._barcode_windows(H)
+        pats = gp.tensors.patterns_all
+        Pa, m = pats.shape
+        Wbc = gp.barcode_window
+        bwin_t, b_len_t = t(bwin), t(b_len)
+        pe = Pa // 2 if split else Pa
+        cells = H * pe * m * (Wbc + Wbc % 2)
+        bound = _bound(Pa * m + H * Wbc + 4 * H + 8 * H * pe,
+                       cells * RANK_INT_PER_CELL, cells * RANK_F32_PER_CELL)
+        src, rep = "barbell_tpu_torch/csrc/rank.cu", "barbell_tpu/ops/pallas_rank.py:55"
+        if split:
+            self.record(
+                "rank_pass1_split", src, rep + " (strand-split, via :223)",
+                f"[{H} lanes, {Wbc}] x {pe} patterns, m = {m}",
+                lambda: rank.rank_pass1_split(pats, bwin_t, b_len_t, H // 2),
+                lambda: rank.rank_pass1_plain(pats, bwin_t, b_len_t, split=H // 2),
+                bound,
+            )
+        else:
+            self.record(
+                "rank_pass1", src, rep + " (non-split, via :266)",
+                f"[{H} lanes, {Wbc}] x {pe} patterns, m = {m}",
+                lambda: rank.rank_pass1(pats, bwin_t, b_len_t),
+                lambda: rank.rank_pass1_plain(pats, bwin_t, b_len_t),
+                bound, reps=5,
+            )
+
+
+def check_ends_kernels(engine) -> list:
+    """Every kernel and mode at the ends path's flagship shapes: Myers
+    rows [8192, 512] (2048 reads + their rc twins) and the deep tier's
+    [1024, 1024] rows, 16384 boundary lanes, a 2816-lane hit capacity."""
+    kc = KernelCheck(engine, "ends", SEED)
+    kc.myers(8192, 512, 2)
+    deep = KernelCheck(engine, "ends (deep tier)", SEED + 1)
+    deep.myers(1024, 1024, 10)  # some rows carry > 8 valleys
+    kc.window_valleys(16384)
+    kc.window_trace(2816)
+    kc.window_interval(2816)
+    kc.rank(2816, split=True)
     torch.cuda.synchronize()
-    return results
+    return kc.entries + deep.entries
 
 
-# ---------------------------------------------------------------- slice
+def check_whole_read_kernels(engine, batches) -> list:
+    """Every kernel at the whole-read paths' recorded shapes: the largest
+    batch's rows and hit capacity, and the non-split batch's."""
+    big = max(batches, key=lambda b: b["R_total"] * b["L"])
+    ns = [b for b in batches if b["H_cap"] % 256]
+    kc = KernelCheck(engine, "whole-read", SEED + 2)
+    kc.myers(big["R_total"], big["L"], 2, valleys=False)
+    kc.window_valleys(2 * big["R_total"])
+    kc.window_trace(big["H_cap"])
+    kc.window_interval(big["H_cap"])
+    kc.rank(max(b["H_cap"] for b in batches if b["H_cap"] % 256 == 0), split=True)
+    kc.rank(max(b["H_cap"] for b in ns), split=False)
+    torch.cuda.synchronize()
+    return kc.entries
 
 
-def _run_kit(fq, out, backend):
+# ---------------------------------------------------------------- paths
+
+
+class BatchRecorder:
+    """Records each device call's row width, row count and hit capacity
+    (the engine's ``_call``) while installed."""
+
+    def __init__(self):
+        from barbell_tpu_torch.models.pipeline import TorchDemuxEngine
+
+        self.cls = TorchDemuxEngine
+        self.orig = TorchDemuxEngine._call
+        self.batches = []
+
+    def __enter__(self):
+        orig, batches = self.orig, self.batches
+
+        def call(eng, gplan, dev_in, L, step, H_cap, S_pad):
+            batches.append({"L": L, "R_total": dev_in[1].shape[0] + S_pad,
+                            "H_cap": H_cap})
+            return orig(eng, gplan, dev_in, L, step, H_cap, S_pad)
+
+        self.cls._call = call
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._call = self.orig
+
+
+def _kit(fq, out, backend, full_scan=False):
     from barbell_tpu_torch.stages.kit import KitRunConfig, demux_using_kit
 
     demux_using_kit(
         [fq],
         KitRunConfig(kit_name=KIT, output_folder=out, batch_size=BATCH,
-                     backend=backend),
+                     backend=backend, full_scan=full_scan),
         device="cuda",
     )
+
+
+def _annotate(fq, out, backend):
+    """``annotate --kit`` in its default whole-read scan."""
+    from barbell_tpu_torch.stages.annotate import AnnotateConfig, annotate_with_kit
+
+    os.makedirs(out, exist_ok=True)
+    annotate_with_kit([fq], os.path.join(out, "annotation.tsv"), KIT,
+                      AnnotateConfig(backend=backend, batch_size=BATCH),
+                      device="cuda")
 
 
 def _files(d):
     return {p.name: p.read_bytes() for p in sorted(Path(d).iterdir())}
 
 
-def run_slice(wrappers, smi: str) -> dict:
-    from barbell_tpu_torch.sim import make_reads_rbk, write_fastq
+def _accuracy(reads, anno_path):
+    """bench.py's measure: a read is assigned by its first barcode (Ftag)
+    annotation row."""
+    truth = {rid: label for rid, _s, label in reads}
+    first = {}
+    with open(anno_path) as fh:
+        next(fh)
+        for line in fh:
+            f = line.split("\t")
+            if f[9] == "Ftag" and f[0] not in first:
+                first[f[0]] = f[12]
+    n_correct = sum(truth[rid] == label for rid, label in first.items())
+    return len(first) / len(reads), n_correct / max(1, len(first))
 
-    t0 = time.perf_counter()
-    reads = make_reads_rbk(N_READS, SEED)
-    log(f"simulated {len(reads)} reads in {time.perf_counter() - t0:.1f}s")
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as d:
-        fq = os.path.join(d, "reads.fastq")
-        write_fastq(fq, reads)
 
-        for w in wrappers:
-            w.launches = 0
-        torch.cuda.synchronize()
+@contextlib.contextmanager
+def _quiet(d, name):
+    """The stages' own console output (kit info, barcode tables,
+    summaries) goes to a file beside the run, off this script's
+    output."""
+    with open(os.path.join(d, f"{name}.stdout"), "w") as fh, \
+            contextlib.redirect_stdout(fh):
+        yield
+
+
+def run_path(name, run, fq, d, reads, wrappers, required, smi):
+    """Drive one path with every launch count at 0 just before it; check
+    its launches and accuracy; return (launches, batches)."""
+    for w in wrappers:
+        w.launches = 0
+    torch.cuda.synchronize()
+    with BatchRecorder() as rec, _quiet(d, name):
         t0 = time.perf_counter()
-        _run_kit(fq, os.path.join(d, "out"), "torch")
+        run(fq, os.path.join(d, name), "torch")
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        launches = {w.__name__: w.launches for w in wrappers}
-        log(f"slice launches: {launches}")
-        for name, n in launches.items():
-            if n <= 0:
-                raise AssertionError(f"kernel {name} never launched in the slice")
+    launches = {w.__name__: w.launches for w in wrappers}
+    log(f"[{name}] launches: {launches}")
+    for b in rec.batches:
+        log(f"[{name}] batch: L {b['L']}, R_total {b['R_total']}, H_cap "
+            f"{b['H_cap']} ({'split' if b['H_cap'] % 256 == 0 else 'non-split'} rank)")
+    for kname in required:
+        if launches[kname] <= 0:
+            raise AssertionError(f"kernel {kname} never launched in path {name}")
+    assigned, correct = _accuracy(reads, os.path.join(d, name, "annotation.tsv"))
+    log(f"[{name}] accuracy: assigned {assigned:.4f}, correct-of-assigned "
+        f"{correct:.4f}")
+    if assigned < FLOOR or correct < FLOOR:
+        raise AssertionError(f"{name}: accuracy below {FLOOR}")
+    log(f"[{name}] smoke figure (not a benchmark): {len(reads)} reads in "
+        f"{dt:.3f}s = {len(reads) / dt:.0f} reads/s, end to end incl. FASTQ "
+        f"IO, on {smi}")
+    return launches, rec.batches
 
-        # bench.py's measure: a read is assigned by its first barcode
-        # (Ftag) annotation row
-        truth = {rid: label for rid, _s, label in reads}
-        first = {}
-        with open(os.path.join(d, "out", "annotation.tsv")) as fh:
-            next(fh)
-            for line in fh:
-                f = line.split("\t")
-                if f[9] == "Ftag" and f[0] not in first:
-                    first[f[0]] = f[12]
-        n_correct = sum(truth[rid] == label for rid, label in first.items())
-        assigned = len(first) / len(reads)
-        correct = n_correct / max(1, len(first))
-        log(f"slice accuracy: assigned {assigned:.4f}, correct-of-assigned "
-            f"{correct:.4f}")
-        if assigned < FLOOR or correct < FLOOR:
-            raise AssertionError(f"accuracy below {FLOOR}")
-        log(f"slice smoke figure (not a benchmark): {len(reads)} reads in "
-            f"{dt:.2f}s = {len(reads) / dt:.0f} reads/s, end to end incl. "
-            f"FASTQ IO, on {smi}")
 
-        sub = os.path.join(d, "sub.fastq")
-        write_fastq(sub, reads[:ORACLE_READS])
-        _run_kit(sub, os.path.join(d, "sub_torch"), "torch")
-        _run_kit(sub, os.path.join(d, "sub_oracle"), "oracle")
-        a, b = _files(os.path.join(d, "sub_torch")), _files(os.path.join(d, "sub_oracle"))
-        if sorted(a) != sorted(b):
-            raise AssertionError(f"stage files differ: {sorted(a)} vs {sorted(b)}")
-        for name in a:
-            if a[name] != b[name]:
-                raise AssertionError(f"{name} differs from the oracle backend")
-        log(f"oracle parity: {len(a)} stage files byte-identical on "
-            f"{ORACLE_READS} reads ({', '.join(sorted(a))})")
-    return launches
+def oracle_parity(name, run, reads, d):
+    """The path's files on the first ORACLE_READS reads equal the scalar
+    oracle backend's byte for byte."""
+    from barbell_tpu_torch.sim import write_fastq
+
+    sub = os.path.join(d, f"{name}_sub.fastq")
+    write_fastq(sub, reads[:ORACLE_READS])
+    a_dir, b_dir = os.path.join(d, f"{name}_sub_torch"), os.path.join(d, f"{name}_sub_oracle")
+    with _quiet(d, f"{name}_sub"):
+        run(sub, a_dir, "torch")
+        t0 = time.perf_counter()
+        run(sub, b_dir, "oracle")
+        t_oracle = time.perf_counter() - t0
+    a, b = _files(a_dir), _files(b_dir)
+    if sorted(a) != sorted(b):
+        raise AssertionError(f"{name}: stage files differ: {sorted(a)} vs {sorted(b)}")
+    for f in a:
+        if a[f] != b[f]:
+            raise AssertionError(f"{name}: {f} differs from the oracle backend")
+    n_long = sum(len(s) > 8192 for _r, s, _l in reads[:ORACLE_READS])
+    log(f"[{name}] oracle parity: {len(a)} files byte-identical on "
+        f"{ORACLE_READS} reads ({n_long} longer than 8192 bases; oracle "
+        f"{t_oracle:.1f}s)")
 
 
 def main() -> int:
     smi = probe()
     from barbell_tpu_torch.ops import myers, rank, window
+    from barbell_tpu_torch.sim import make_reads_rbk, write_fastq
 
     t0 = time.perf_counter()
     engine = _flagship_engine()
     log(f"engine set up in {time.perf_counter() - t0:.1f}s (builds the native "
         f"IO library on first use)")
-    kernels = check_kernels(engine)
-    wrappers = [myers.myers_topk, window.window_valleys, window.window_trace,
-                window.window_interval, rank.rank_pass1]
-    launches = run_slice(wrappers, smi)
+    kernels = check_ends_kernels(engine)
+
+    wrappers = [myers.myers_topk, myers.myers_valleys, window.window_valleys,
+                window.window_trace, window.window_interval,
+                rank.rank_pass1_split, rank.rank_pass1]
+    on_path = ["myers_topk", "window_valleys", "window_trace",
+               "window_interval", "rank_pass1_split"]
+    by_path = {}
+    whole_batches = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as d:
+        t0 = time.perf_counter()
+        ends_reads = make_reads_rbk(N_ENDS, SEED)
+        whole_reads = make_reads_rbk(N_WHOLE, SEED, long_every=LONG_EVERY)
+        fq_ends = os.path.join(d, "ends.fastq")
+        fq_whole = os.path.join(d, "whole.fastq")
+        write_fastq(fq_ends, ends_reads)
+        write_fastq(fq_whole, whole_reads)
+        n_long = sum(len(s) > 8192 for _r, s, _l in whole_reads)
+        log(f"simulated {len(ends_reads)} + {len(whole_reads)} reads "
+            f"({n_long} longer than 8192 bases) in "
+            f"{time.perf_counter() - t0:.1f}s")
+
+        by_path["kit"], _ = run_path(
+            "kit", _kit, fq_ends, d, ends_reads, wrappers, on_path, smi)
+        oracle_parity("kit", _kit, ends_reads, d)
+
+        def kit_full(fq, out, backend):
+            _kit(fq, out, backend, full_scan=True)
+
+        for name, run in (("annotate", _annotate), ("kit_full_scan", kit_full)):
+            by_path[name], batches = run_path(
+                name, run, fq_whole, d, whole_reads, wrappers,
+                on_path + ["rank_pass1"], smi)
+            whole_batches += batches
+            oracle_parity(name, run, whole_reads, d)
+
+    kernels += check_whole_read_kernels(engine, whole_batches)
     for entry in kernels:
-        entry["launches"] = launches[entry["name"]]
+        n = entry["name"]
+        entry["launches_by_path"] = {p: c[n] for p, c in by_path.items()}
+        if entry["path"].startswith("ends"):
+            entry["launches"] = by_path["kit"][n]
+        elif entry["path"] == "whole-read":
+            entry["launches"] = by_path["annotate"][n] + by_path["kit_full_scan"][n]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({

@@ -1,6 +1,8 @@
-"""The port never imports jax: every barbell_tpu_torch module imports,
-and one CPU engine batch runs, in a process where importing jax fails;
-and the port's command line runs its kit path and delegates the rest."""
+"""The port imports neither jax nor the JAX package: every
+barbell_tpu_torch module imports, one CPU engine batch runs in each scan
+mode, and the command line runs ``annotate`` and ``filter``, in a
+process where importing ``jax`` or ``barbell_tpu`` fails; the chip
+script imports neither; and the port's command line runs its kit path."""
 
 import ast
 import os
@@ -15,19 +17,21 @@ torch = pytest.importorskip("torch")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SCRIPT = r"""
-import importlib, pkgutil, sys
+import importlib, os, pkgutil, sys, tempfile
 sys.modules["jax"] = None  # any `import jax` now raises ImportError
+sys.modules["barbell_tpu"] = None  # and so does the JAX package
 import barbell_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(
     barbell_tpu_torch.__path__, "barbell_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-import chip_smoke  # the chip script imports no jax either
+import chip_smoke  # the chip script imports neither
 
-from barbell_tpu.models.barcodes import BarcodeGroup
-from barbell_tpu.ops.edit_model import get_edit_cut_off
-from barbell_tpu.sim.simulate import default_barcodes, rapid_adapter
+from barbell_tpu_torch import cli
+from barbell_tpu_torch.models.barcodes import BarcodeGroup
 from barbell_tpu_torch.models.pipeline import TorchDemuxEngine
+from barbell_tpu_torch.ops.edit_model import get_edit_cut_off
+from barbell_tpu_torch.sim.simulate import default_barcodes, rapid_adapter
 
 groups = BarcodeGroup.from_kit("SQK-RBK114-96", False)
 for g in groups:
@@ -35,11 +39,33 @@ for g in groups:
     g.patterns_fwd = g.patterns_fwd[:4]
     g.patterns_rc = g.patterns_rc[:4]
     g.set_flank_threshold(get_edit_cut_off(g.get_effective_len()))
-engine = TorchDemuxEngine(groups, ends_window=(512, 512), device="cpu")
 label, bseq = default_barcodes(4)[2]
-table = engine.demux_batch_table(["r0"], [rapid_adapter(bseq) + b"ACGT" * 60])
-assert table.n_rows >= 1, table.n_rows
-print("MODULES", len(names), "ROWS", table.n_rows)
+read = rapid_adapter(bseq) + b"ACGTTG" * 100
+rows = []
+for ends in ((256, 256), None):  # ends scan, whole-read scan (chunk rows)
+    engine = TorchDemuxEngine(groups, ends_window=ends, max_row_len=256,
+                              device="cpu")
+    rows.append(engine.demux_batch_table(["r0"], [read]).n_rows)
+assert min(rows) >= 1, rows
+
+d = tempfile.mkdtemp()
+fq, tsv, pat, qf = (os.path.join(d, f)
+                    for f in ("r.fastq", "a.tsv", "p.txt", "q.fasta"))
+with open(qf, "w") as fh:
+    for lab, bs in default_barcodes(3)[1:]:
+        fh.write(f">{lab}\n{rapid_adapter(bs).decode()}\n")
+with open(fq, "w") as fh:
+    fh.write(f"@r0\n{read.decode()}\n+\n{'I' * len(read)}\n")
+with open(pat, "w") as fh:
+    fh.write("Ftag[fw, *, @left(0..250), >>]\n")
+cli.DEVICE = "cpu"
+assert cli.main(["annotate", "-i", fq, "-o", tsv, "-q", qf, "-b", "Ftag",
+                 "--batch-size", "4"]) == 0
+assert cli.main(["filter", "-i", tsv, "-o", tsv + ".f", "-f", pat]) == 0
+assert open(tsv + ".f").read().count("\n") == 2  # header + the read's row
+assert not any(m == "jax" or m.startswith(("jax.", "barbell_tpu."))
+               for m in sys.modules if sys.modules[m] is not None)
+print("MODULES", len(names), "ROWS", rows)
 """
 
 
@@ -51,12 +77,12 @@ def test_port_imports_and_runs_without_jax():
     )
     assert res.returncode == 0, res.stdout + res.stderr
     n_modules = int(res.stdout.split("MODULES")[1].split()[0])
-    assert n_modules >= 12
+    assert n_modules >= 35
 
 
 def test_chip_smoke_imports_only_the_port():
-    """The chip script reaches the JAX package's jax-free modules only
-    through the port: it imports no ``jax`` and no ``barbell_tpu``."""
+    """The chip script imports no ``jax`` and no ``barbell_tpu``, only
+    the port."""
     with open(os.path.join(REPO, "chip_smoke.py")) as fh:
         tree = ast.parse(fh.read())
     names = set()
@@ -87,6 +113,8 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
 
 
 def test_cli_kit_oracle_delegation_and_not_ported(tmp_path, capsys):
+    """The port's ``kit`` on the oracle backend writes the JAX CLI's
+    stage files; its host commands run; what is not ported exits 2."""
     from barbell_tpu import cli as reference_cli
     from barbell_tpu.sim.simulate import default_barcodes, rapid_adapter
     from barbell_tpu_torch.cli import main
@@ -104,7 +132,9 @@ def test_cli_kit_oracle_delegation_and_not_ported(tmp_path, capsys):
         outs[name] = {f.name: f.read_bytes() for f in sorted(out.iterdir())}
     assert outs["port"] == outs["ref"] and "annotation.tsv" in outs["port"]
     assert main(["inspect", "-i", str(tmp_path / "port" / "annotation.tsv")]) == 0
-    assert main(["annotate", "-i", str(fq)]) == 2
+    assert main(["kits"]) == 0
+    assert main(["annotate", "-i", str(fq)]) == 1  # needs --kit or -q
+    assert main(["compare", "--sim-dir", "x"]) == 2
     assert main(["kit", "-k", "SQK-RBK114-96", "-i", str(fq), "-o",
-                 str(tmp_path / "x"), "--full-scan", "--backend", "oracle"]) == 2
+                 str(tmp_path / "x"), "--use-extended"]) == 2
     assert "not ported yet" in capsys.readouterr().out

@@ -1,6 +1,7 @@
-"""The port's Myers flank scan (plain PyTorch version, which the CUDA
-wrapper runs for CPU tensors) against the Pallas kernel in interpret
-mode: top-8 valley keys and exact counts must be equal integers."""
+"""The port's Myers flank scan (plain PyTorch versions, which the CUDA
+wrappers run for CPU tensors) against the Pallas kernel in interpret
+mode, in both its modes: top-8 valley keys and exact counts, and the
+valley-cost map, must be equal integers."""
 
 import sys
 import threading
@@ -12,19 +13,31 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
+from barbell_tpu.ops import pallas_myers  # noqa: E402
 from barbell_tpu.ops.pallas_myers import (  # noqa: E402
     myers_topk_from_words,
+    myers_valleys,
     pattern_words as jax_pattern_words,
 )
 from barbell_tpu_torch import _build  # noqa: E402
 from barbell_tpu_torch.ops.myers import (  # noqa: E402
     TOPK,
     myers_topk,
+    myers_valleys as port_myers_valleys,
     pattern_words,
 )
 
 BASES = np.array([1, 2, 4, 8], dtype=np.uint8)
 UNIT = 2560
+
+
+@pytest.fixture(autouse=True)
+def _myers_unroll_1(monkeypatch):
+    """The Pallas kernel unrolls its position loop 16-fold for the TPU's
+    scheduler (``BARBELL_MYERS_UNROLL``); the arithmetic is the same at
+    any factor, and at 1 its interpret-mode trace compiles about 16
+    times faster on the CPU."""
+    monkeypatch.setattr(pallas_myers, "UNROLL", 1)
 
 
 def _rows(rng, pattern, R, L):
@@ -77,6 +90,34 @@ def test_myers_topk_plain_matches_pallas(m):
     assert got_c[2] == 0
     if m == 9:
         assert got_c[1] > TOPK  # the overflow row really overflowed
+
+
+@pytest.mark.parametrize("m", [9, 90])
+def test_myers_valleys_plain_matches_pallas(m):
+    """Map mode: the u8 valley-cost map (255 = no valley), IUPAC N in the
+    flank and in the rows, and an empty emission range."""
+    rng = np.random.default_rng(200 + m)
+    R, L = 16, 256
+    pattern = BASES[rng.integers(0, 4, m)]
+    pattern[rng.integers(0, m, 2)] = 15
+    rows = _rows(rng, pattern, R, L)
+    k_units = max(2, m // 5)
+    emit_lo = rng.integers(0, 40, R).astype(np.int32)
+    emit_hi = (L - 1 - rng.integers(0, 40, R)).astype(np.int32)
+    emit_lo[3], emit_hi[3] = 60, 20  # empty emission range
+    want = myers_valleys(
+        pattern, jnp.asarray(rows), jnp.asarray(emit_lo), jnp.asarray(emit_hi),
+        jnp.int32(k_units), CL=L, interpret=True,
+    )
+    words, _, _ = pattern_words(pattern)
+    got = port_myers_valleys(
+        torch.from_numpy(words.view(np.int32)), m, torch.from_numpy(rows),
+        torch.from_numpy(emit_lo), torch.from_numpy(emit_hi), k_units,
+    )
+    assert got.dtype == torch.uint8 and got.shape == (R, L)
+    assert np.array_equal(got.numpy(), np.asarray(want))
+    assert (got[3] == 255).all()
+    assert int((got < 255).sum()) >= R  # valleys were found
 
 
 def test_launch_counter_loses_no_update_across_threads():

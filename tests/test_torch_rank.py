@@ -61,7 +61,7 @@ def test_rank_split_plain_matches_pallas():
         jnp.asarray(pats), P, jnp.asarray(wins), jnp.asarray(wlen),
         interpret=True,
     )
-    got = tr.rank_pass1(torch.from_numpy(pats), torch.from_numpy(wins),
-                        torch.from_numpy(wlen), split=H // 2)
+    got = tr.rank_pass1_split(torch.from_numpy(pats), torch.from_numpy(wins),
+                              torch.from_numpy(wlen), H // 2)
     assert got[0].shape == (H, P)
     _same(got, want)
