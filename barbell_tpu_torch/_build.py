@@ -9,6 +9,9 @@ a private temporary name and is renamed into place, so concurrent
 processes never open a half-written file.  A lock makes the build
 happen once per process: the engine's constructor calls :func:`load`,
 so the worker threads of ``engine_map_batches`` never race ``nvcc``.
+The compiler's output (``-Xptxas -v``: registers, shared memory, stack
+frame and spills of every kernel) is kept beside the library and read
+back into :data:`build_log` whenever the library loads.
 
 Any build or load failure raises; there is no fallback.
 """
@@ -40,7 +43,7 @@ NVCC_FLAGS = (
 _lock = threading.Lock()
 _count_lock = threading.Lock()
 _lib = None
-#: compiler output of the build this process ran ("" when it loaded a
+#: compiler output of the library's build (read back from beside a
 #: finished library) and the seconds the build and load took
 build_log = ""
 build_seconds = 0.0
@@ -54,10 +57,12 @@ _SIGNATURES = {
     # rows, patw, emit_lo, emit_hi, map, R, L, W, top_bit, m, k, stream
     "bb_myers_valleys": [_P] * 5 + [_I] * 6 + [_P],
     # mode, pat, pat_stride, win, c0, ledge, rpos, ehi, wlen, out,
-    # out_cnt, H, m, W, unit, alpha, ra, rb, k_scaled, klmul, stream
-    "bb_window": [_I, _P, ctypes.c_longlong] + [_P] * 8 + [_I] * 9 + [_P],
-    # pats, win, wlen, key, lodhi, H, P, m, W, split, unit, stream
-    "bb_rank": [_P] * 5 + [_I] * 6 + [_P],
+    # out_cnt, H, m, W, unit, alpha, ra, rb, k_scaled, klmul, rows, group,
+    # stream
+    "bb_window": [_I, _P, ctypes.c_longlong] + [_P] * 8 + [_I] * 11 + [_P],
+    # pats, win, wlen, key, lodhi, H, P, m, W, split, unit, rows, group,
+    # stream
+    "bb_rank": [_P] * 5 + [_I] * 8 + [_P],
 }
 
 
@@ -126,8 +131,10 @@ def load() -> ctypes.CDLL:
         if _lib is None:
             t0 = time.perf_counter()
             so = library_path()
+            log = so.with_suffix(".log")
             if not so.exists():
-                build_log = _build(so)
+                log.write_text(_build(so))
+            build_log = log.read_text() if log.exists() else ""
             lib = ctypes.CDLL(str(so))
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)
@@ -136,6 +143,27 @@ def load() -> ctypes.CDLL:
             build_seconds = time.perf_counter() - t0
             _lib = lib
         return _lib
+
+
+def wavefront_plan(m: int, W: int, rows) -> tuple:
+    """(R, G) for a wavefront kernel over a pattern of ``m`` rows and a
+    window of ``W`` columns: R pattern rows a thread (one of ``rows``, the
+    kernel's template instances) and a power-of-two group of G <= 32
+    threads, the pair with the fewest thread-cell slots
+    G * R * (W + (m - 1) // R), which counts the padding rows and the ramp
+    until the thread holding row m reaches column W; ties go to the
+    smaller R (fewer registers).  Raises if no instance covers m."""
+    best = None
+    for R in rows:
+        G = 1 << max(0, -(-m // R) - 1).bit_length()
+        if G > 32:
+            continue
+        cost = G * R * (W + (m - 1) // R)
+        if best is None or cost < best[0]:
+            best = (cost, R, G)
+    if best is None:
+        raise ValueError(f"pattern length {m} needs more than 32 x {max(rows)} rows")
+    return best[1], best[2]
 
 
 def ptr(t, name: str, dtype, device, shape) -> int:

@@ -28,6 +28,14 @@ UNIT = COST_SCALE
 BIGK = 2**30
 A_DIAG = 0.25  # lambda**2
 A_GAP = 0.5
+#: pattern rows a thread holds (the kernel's template instances)
+ROWS = (1, 2, 3, 4, 6, 8, 11, 12, 16)
+
+
+def plan(m: int, W: int):
+    """(R, G) of the kernel's wavefront: R pattern rows per thread, G
+    threads per (lane, pattern) pair (:func:`_build.wavefront_plan`)."""
+    return _build.wavefront_plan(m, W, ROWS)
 
 
 def _prepare(patterns, windows, split):
@@ -131,6 +139,7 @@ def _launch(wrapper, patterns, windows, w_len, split: int):
     w_len = w_len.to(torch.int32).contiguous()
     H, W = windows.shape
     Pa, m = patterns.shape
+    R, G = plan(m, W)
     lib = _build.load()
     key = torch.empty((H, P), dtype=torch.int32, device=dev)
     lodhi = torch.empty((H, P), dtype=torch.float32, device=dev)
@@ -142,7 +151,7 @@ def _launch(wrapper, patterns, windows, w_len, split: int):
             _build.ptr(windows, "windows", torch.uint8, dev, (H, W)),
             _build.ptr(w_len, "w_len", torch.int32, dev, (H,)),
             key.data_ptr(), lodhi.data_ptr(), H, P, m, W, int(split), UNIT,
-            torch.cuda.current_stream().cuda_stream,
+            R, G, torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, "bb_rank")
     _build.count_launch(wrapper)

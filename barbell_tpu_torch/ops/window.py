@@ -182,16 +182,30 @@ def window_plain(mode, pat, win, c0, ledge, rpos, ehi, wlen, alpha, ra, rb,
     return top.to(torch.int32), count.to(torch.int32)
 
 
+#: pattern rows a thread holds (the kernel's template instances)
+ROWS = (1, 2, 3, 4)
+
+
+def plan(m: int, W: int):
+    """(R, G) of the kernel's wavefront: R <= 4 pattern rows per thread,
+    G threads per lane (:func:`_build.wavefront_plan`)."""
+    if not 1 <= m <= _MAXM:
+        raise ValueError(f"window kernel: pattern length {m} outside 1..{_MAXM}")
+    return _build.wavefront_plan(m, W, ROWS)
+
+
 def _launch(wrapper, mode, pat, win, c0, ledge, rpos, ehi, wlen, alpha, ra,
             rb, k_scaled, klmul):
-    """Launch the kernel in ``mode`` and count it on ``wrapper``."""
+    """Launch the kernel in ``mode`` and count it on ``wrapper``.  The
+    per-lane arrays a mode does not read are ``None`` (the kernel gets
+    ``c0`` in their place): ``ledge``/``rpos`` in interval mode,
+    ``ehi``/``wlen`` outside valley mode."""
     dev = win.device
     if dev.type != "cuda":
         raise ValueError(f"window kernel: unsupported device {dev}")
     H, W = win.shape
     m = pat.shape[-1]
-    if not 1 <= m <= _MAXM:
-        raise ValueError(f"window kernel: pattern length {m} outside 1..{_MAXM}")
+    R, G = plan(m, W)
     shared = pat.dim() == 1
     lib = _build.load()
     i32 = torch.int32
@@ -204,20 +218,19 @@ def _launch(wrapper, mode, pat, win, c0, ledge, rpos, ehi, wlen, alpha, ra,
     result = (out, cnt) if mode == MODE_VALLEY else out
     if H == 0:
         return result
+    p_c0 = _build.ptr(c0, "c0", i32, dev, (H,))
+    lanes = [p_c0 if t is None else _build.ptr(t, name, i32, dev, (H,))
+             for t, name in ((ledge, "left_edge"), (rpos, "right_pos"),
+                             (ehi, "emit_hi"), (wlen, "w_len"))]
     with torch.cuda.device(dev):
         err = lib.bb_window(
             mode,
             _build.ptr(pat, "pattern", torch.uint8, dev, (m,) if shared else (H, m)),
             0 if shared else m,
             _build.ptr(win, "windows", torch.uint8, dev, (H, W)),
-            _build.ptr(c0, "c0", i32, dev, (H,)),
-            _build.ptr(ledge, "left_edge", i32, dev, (H,)),
-            _build.ptr(rpos, "right_pos", i32, dev, (H,)),
-            _build.ptr(ehi, "emit_hi", i32, dev, (H,)),
-            _build.ptr(wlen, "w_len", i32, dev, (H,)),
-            out.data_ptr(), cnt.data_ptr(),
+            p_c0, *lanes, out.data_ptr(), cnt.data_ptr(),
             H, m, W, UNIT, int(alpha), int(ra), int(rb), int(k_scaled),
-            int(klmul), torch.cuda.current_stream().cuda_stream,
+            int(klmul), R, G, torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, "bb_window")
     _build.count_launch(wrapper)
@@ -249,15 +262,18 @@ def window_trace(pattern, windows, end_j, left_edge, right_pos, alpha_scaled,
                  region_a, region_b):
     """(text_start, region_lo, region_hi) [H] each at each lane's end
     position."""
-    z = torch.zeros_like(end_j, dtype=torch.int32)
-    args = (
-        MODE_TRACE, pattern, windows, _i32(end_j), _i32(left_edge),
-        _i32(right_pos), z, z, alpha_scaled, region_a, region_b, 0, 0,
-    )
     if windows.device.type == "cpu":
-        out = window_plain(*args)
+        z = torch.zeros_like(end_j, dtype=torch.int32)
+        out = window_plain(
+            MODE_TRACE, pattern, windows, _i32(end_j), _i32(left_edge),
+            _i32(right_pos), z, z, alpha_scaled, region_a, region_b, 0, 0,
+        )
     else:
-        out = _launch(window_trace, *args)
+        out = _launch(
+            window_trace, MODE_TRACE, pattern, windows, _i32(end_j),
+            _i32(left_edge), _i32(right_pos), None, None, alpha_scaled,
+            region_a, region_b, 0, 0,
+        )
     return out[:, 0], out[:, 1], out[:, 2]
 
 
@@ -265,14 +281,16 @@ def window_interval(patterns_h, windows, end_j, iv_a, iv_b):
     """Barcode interval mapping at each lane's end position (plain
     unit-cost semiglobal; no alpha boundaries on barcode windows).
     Returns [H, 6]: iv_pj, iv_ej, iv_pi, iv_ei, iv_cost, has_iv."""
-    z = torch.zeros_like(end_j, dtype=torch.int32)
-    args = (
-        MODE_INTERVAL, patterns_h, windows, _i32(end_j), z, z - 1, z, z,
-        UNIT, iv_a, iv_b, 0, 0,
-    )
     if windows.device.type == "cpu":
-        return window_plain(*args)
-    return _launch(window_interval, *args)
+        z = torch.zeros_like(end_j, dtype=torch.int32)
+        return window_plain(
+            MODE_INTERVAL, patterns_h, windows, _i32(end_j), z, z - 1, z, z,
+            UNIT, iv_a, iv_b, 0, 0,
+        )
+    return _launch(
+        window_interval, MODE_INTERVAL, patterns_h, windows, _i32(end_j),
+        None, None, None, None, UNIT, iv_a, iv_b, 0, 0,
+    )
 
 
 window_valleys.launches = 0

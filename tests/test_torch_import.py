@@ -96,6 +96,17 @@ def test_chip_smoke_imports_only_the_port():
     assert not roots & {"jax", "jaxlib", "barbell_tpu"}, sorted(names)
 
 
+def test_nvcc_flags_keep_exact_lodhi_and_hopper_target():
+    """The kernels build for sm_90a, and with FMA contraction off: the
+    rank kernel's Lodhi scores are held bit for bit."""
+    from barbell_tpu_torch import _build
+
+    flags = _build.NVCC_FLAGS
+    assert "--fmad=false" in flags
+    assert flags[flags.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"
+    assert ("-Xptxas", "-v") in zip(flags, flags[1:])
+
+
 def test_chip_smoke_fails_without_a_card(tmp_path):
     """Without CUDA the chip script exits non-zero and prints no result
     line, from the repo and from a directory holding only the script."""

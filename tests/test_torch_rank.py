@@ -65,3 +65,66 @@ def test_rank_split_plain_matches_pallas():
                               torch.from_numpy(wlen), H // 2)
     assert got[0].shape == (H, P)
     _same(got, want)
+
+
+def _edge_lanes(rng, pats, H, W):
+    """Windows holding a noisy pattern copy each, and the lanes the
+    kernel's early exit turns on: ``w_len`` 0, exactly W, and past W."""
+    wins = BASES[rng.integers(0, 4, size=(H, W))]
+    wlen = rng.integers(0, W + 1, H).astype(np.int32)
+    for h in range(H):
+        p = pats[rng.integers(0, len(pats))]
+        pos = int(rng.integers(0, max(1, W - len(p) + 1)))
+        seg = p[: W - pos]
+        wins[h, pos : pos + len(seg)] = seg
+        wins[h, wlen[h]:] = 0
+    wlen[:4] = 0, W, W + 1, W + 40
+    return wins, wlen
+
+
+@pytest.mark.parametrize(
+    "H,Pa,m,W,split",
+    [
+        (7, 4, 1, 13, 0),  # one-row patterns
+        (9, 6, 5, 17, 0),  # odd W (zero-padded to even)
+        (11, 6, 6, 5, 0),  # window shorter than the pattern
+        (13, 6, 5, 15, 5),  # strand split at an odd lane
+    ],
+    ids=["m1", "odd_w", "w_lt_m", "odd_split"],
+)
+def test_rank_edge_cases_match_pallas(H, Pa, m, W, split):
+    """Edge cases of the CUDA kernel's wavefront and early exit, held on
+    the plain version: lanes with ``w_len`` 0, W and past W in every
+    case.  The split form at an odd lane is held against the Pallas
+    non-split kernel's columns of each lane's strand (the Pallas split
+    form splits only at H / 2 on a 256-lane tile)."""
+    rng = np.random.default_rng(1000 + 10 * m + W)
+    pats = BASES[rng.integers(0, 4, size=(Pa, m))]
+    pats[rng.integers(0, Pa), rng.integers(0, m)] = 15
+    wins, wlen = _edge_lanes(rng, pats, H, W)
+    want = rank_pass1(
+        jnp.asarray(pats), jnp.asarray(wins), jnp.asarray(wlen), interpret=True
+    )
+    if split:
+        P = Pa // 2
+        rc = (np.arange(H) >= split)[:, None]
+        want = tuple(np.where(rc, np.asarray(a)[:, P:], np.asarray(a)[:, :P])
+                     for a in want)
+        got = tr.rank_pass1_split(torch.from_numpy(pats), torch.from_numpy(wins),
+                                  torch.from_numpy(wlen), split)
+    else:
+        got = tr.rank_pass1(torch.from_numpy(pats), torch.from_numpy(wins),
+                            torch.from_numpy(wlen))
+    _same(got, want)
+    # a w_len = 0 lane scores m * UNIT at position 0 with Lodhi 0
+    assert (got[0][0] == m * tr.UNIT * 256).all() and (got[1][0] == 0).all()
+
+
+@pytest.mark.parametrize("m", [1, 9, 17, 44, 90, 128, 512])
+def test_rank_plan_covers_pattern(m):
+    """The kernel's (rows, group) choice: a template instance, a
+    power-of-two group within a warp, enough rows for the pattern."""
+    for W in (2, 22, 66, 254):
+        R, G = tr.plan(m, W)
+        assert R in tr.ROWS and G in (1, 2, 4, 8, 16, 32) and G * R >= m
+    assert tr.plan(44, 66) == (11, 4)

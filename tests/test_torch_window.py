@@ -109,3 +109,75 @@ def test_window_interval_matches_pallas(iv):
     got = tw.window_interval(_t(pats), _t(wins), _t(end_j), iv[0], iv[1])
     assert got.shape == (H, 6)
     assert np.array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize(
+    "mode,m,W",
+    [
+        (tw.MODE_VALLEY, 9, 20),
+        (tw.MODE_VALLEY, 12, 9),  # window shorter than the pattern
+        (tw.MODE_TRACE, 9, 20),
+        (tw.MODE_TRACE, 12, 9),
+        (tw.MODE_INTERVAL, 12, 9),
+    ],
+    ids=["valley", "valley_w_lt_m", "trace", "trace_w_lt_m", "interval_w_lt_m"],
+)
+def test_window_edge_cases_match_pallas(mode, m, W):
+    """Edge cases of the CUDA kernel's wavefront, held on the plain
+    version: ``end_j`` 0, 1, W and past W (the kernel stops at the end
+    column), ``right_pos`` at 1 and at W (the column-dependent vertical
+    cost), left-edge lanes (the column-0 boundary), ``w_len`` 0 and
+    past W."""
+    rng = np.random.default_rng(300 + 10 * mode + W)
+    H = 20
+    pats, wins, w_len = _cases(rng, H, m, W, shared_pattern=mode != tw.MODE_INTERVAL)
+    ledge = rng.integers(0, 2, H).astype(bool)
+    ledge[:2] = True
+    rpos = rng.choice([1, W], H).astype(np.int32)
+    end_j = rng.integers(0, W + 1, H).astype(np.int32)
+    end_j[:4] = 0, 1, W, W + 2
+    if mode == tw.MODE_VALLEY:
+        w_len[:2] = 0, W + 3
+        emit_lo = rng.integers(-1, 3, H).astype(np.int32)
+        emit_hi = (W - rng.integers(-2, 4, H)).astype(np.int32)
+        k_scaled = m * UNIT
+        want = pw.window_valleys(
+            jnp.asarray(pats), jnp.asarray(wins), jnp.asarray(w_len),
+            jnp.asarray(ledge), jnp.asarray(rpos), jnp.asarray(emit_lo),
+            jnp.asarray(emit_hi), jnp.int32(ALPHA), jnp.int32(k_scaled), W + 2,
+            interpret=True,
+        )
+        got = tw.window_valleys(
+            _t(pats[0]), _t(wins), _t(w_len), _t(ledge), _t(rpos),
+            _t(emit_lo), _t(emit_hi), ALPHA, k_scaled, W + 2,
+        )
+        assert int(got[1].sum()) > 0
+    elif mode == tw.MODE_TRACE:
+        ra, rb = 2, m - 3
+        want = pw.window_trace(
+            jnp.asarray(pats), jnp.asarray(wins), jnp.asarray(end_j),
+            jnp.asarray(ledge), jnp.asarray(rpos), jnp.int32(ALPHA),
+            jnp.int32(ra), jnp.int32(rb), interpret=True,
+        )
+        got = tw.window_trace(
+            _t(pats[0]), _t(wins), _t(end_j), _t(ledge), _t(rpos), ALPHA, ra, rb
+        )
+    else:
+        want = (pw.window_interval(
+            jnp.asarray(pats), jnp.asarray(wins), jnp.asarray(end_j),
+            jnp.int32(3), jnp.int32(m - 2), interpret=True,
+        ),)
+        got = (tw.window_interval(_t(pats), _t(wins), _t(end_j), 3, m - 2),)
+    for g, w in zip(got, want):
+        assert np.array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("m", [1, 11, 44, 90, 128])
+def test_window_plan_covers_pattern(m):
+    """The kernel's (rows, group) choice: at most 4 rows a thread, a
+    power-of-two group within a warp, enough rows for the pattern."""
+    for W in (1, 26, 111, 400):
+        R, G = tw.plan(m, W)
+        assert R in tw.ROWS and G in (1, 2, 4, 8, 16, 32) and G * R >= m
+    with pytest.raises(ValueError):
+        tw.plan(129, 10)
