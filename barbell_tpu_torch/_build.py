@@ -52,10 +52,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     # rows, patw, emit_lo, emit_hi, keys, cnt, R, L, W, top_bit, m, k,
-    # klmul, stream
-    "bb_myers_topk": [_P] * 6 + [_I] * 7 + [_P],
-    # rows, patw, emit_lo, emit_hi, map, R, L, W, top_bit, m, k, stream
-    "bb_myers_valleys": [_P] * 5 + [_I] * 6 + [_P],
+    # klmul, seg, S, stream
+    "bb_myers_topk": [_P] * 6 + [_I] * 9 + [_P],
+    # rows, patw, emit_lo, emit_hi, map, R, L, W, top_bit, m, k, seg, S,
+    # stream
+    "bb_myers_valleys": [_P] * 5 + [_I] * 8 + [_P],
     # mode, pat, pat_stride, win, c0, ledge, rpos, ehi, wlen, out,
     # out_cnt, H, m, W, unit, alpha, ra, rb, k_scaled, klmul, rows, group,
     # stream
@@ -163,6 +164,47 @@ def wavefront_plan(m: int, W: int, rows) -> tuple:
             best = (cost, R, G)
     if best is None:
         raise ValueError(f"pattern length {m} needs more than 32 x {max(rows)} rows")
+    return best[1], best[2]
+
+
+#: threads whose instruction slots take as long as one thread's dependent
+#: step: a Myers segment's time is its chain times (its launch's threads
+#: + SEGMENT_FILL) (132 SMs x 6 warps; chip_smoke.py's segment sweep)
+SEGMENT_FILL = 132 * 6 * 32
+
+
+def myers_warmup(m: int, k: int) -> int:
+    """Columns a Myers segment scans before the first position it
+    decides (``warmup_cols`` in ``csrc/myers.cu``, whose header gives the
+    argument): an alignment of cost <= k spans at most m + k columns."""
+    return m + k
+
+
+def segment_size(L: int, S: int) -> int:
+    """SEG for S segments of an L-column row: ceil(L / S) rounded up to
+    16 (at least 16), so every segment starts on a 16-byte word."""
+    return max(16, (-(-L // S) + 15) // 16 * 16)
+
+
+def segment_plan(m: int, k: int, L: int, R: int) -> tuple:
+    """(SEG, S) for the Myers kernel over ``R`` rows of ``L`` columns:
+    S segments of SEG columns a row (S a power of two <= 32, and
+    <= L / 16 past 1; SEG = :func:`segment_size`), the S with the least
+    chain * (R * S + SEGMENT_FILL), where the chain is the longest
+    segment's columns, min(L, SEG + warm-up): each step of the chain
+    waits for its own latency and for the instruction slots of the launch's
+    other threads.  Ties go to the smaller S."""
+    if L < 0 or L % 16:
+        raise ValueError(f"Myers rows need L % 16 == 0, got L = {L}")
+    best = None
+    S = 1
+    while S == 1 or S <= min(32, L // 16):
+        seg = segment_size(L, S)
+        chain = L if S == 1 else min(L, seg + myers_warmup(m, k))
+        cost = chain * (R * S + SEGMENT_FILL)
+        if best is None or cost < best[0]:
+            best = (cost, seg, S)
+        S *= 2
     return best[1], best[2]
 
 

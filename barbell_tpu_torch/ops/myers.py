@@ -17,7 +17,10 @@ decided for ``j < L`` only.
 
 Each launches the CUDA kernel (``csrc/myers.cu``) for CUDA tensors and
 runs its plain version (:func:`myers_topk_plain`,
-:func:`myers_valleys_plain`) for CPU tensors.
+:func:`myers_valleys_plain`) for CPU tensors.  The kernel splits each
+row into segments (:func:`plan`), each started ``m + k`` columns early
+(:func:`barbell_tpu_torch._build.myers_warmup`); the plain versions are
+one pass over the row.
 """
 
 from __future__ import annotations
@@ -141,6 +144,12 @@ def _check(patw, m: int, rows, name: str):
     return R, L, W
 
 
+def plan(m: int, k_units: int, L: int, R: int):
+    """(SEG, S) of the kernel: S segments of SEG columns per row
+    (:func:`_build.segment_plan`)."""
+    return _build.segment_plan(m, k_units, L, R)
+
+
 def myers_topk(patw, m: int, rows, emit_lo, emit_hi, k_units: int,
                klmul: int):
     """Top-8 valley keys [R, 8] int32 and exact counts [R] int32.
@@ -152,6 +161,7 @@ def myers_topk(patw, m: int, rows, emit_lo, emit_hi, k_units: int,
     if dev.type == "cpu":
         return myers_topk_plain(patw, m, rows, emit_lo, emit_hi, k_units, klmul)
     R, L, W = _check(patw, m, rows, "myers_topk")
+    seg, S = plan(m, k_units, L, R)
     lib = _build.load()
     keys = torch.empty((R, TOPK), dtype=torch.int32, device=dev)
     cnt = torch.empty(R, dtype=torch.int32, device=dev)
@@ -164,7 +174,7 @@ def myers_topk(patw, m: int, rows, emit_lo, emit_hi, k_units: int,
             _build.ptr(emit_lo, "emit_lo", torch.int32, dev, (R,)),
             _build.ptr(emit_hi, "emit_hi", torch.int32, dev, (R,)),
             keys.data_ptr(), cnt.data_ptr(),
-            R, L, W, (m - 1) % 32, m, int(k_units), int(klmul),
+            R, L, W, (m - 1) % 32, m, int(k_units), int(klmul), seg, S,
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, "bb_myers_topk")
@@ -191,6 +201,7 @@ def myers_valleys(patw, m: int, rows, emit_lo, emit_hi, k_units: int):
     R, L, W = _check(patw, m, rows, "myers_valleys")
     if not 0 <= k_units < 255:
         raise ValueError(f"myers_valleys: k_units {k_units} must be < 255")
+    seg, S = plan(m, k_units, L, R)
     lib = _build.load()
     out = torch.empty((R, L), dtype=torch.uint8, device=dev)
     if R == 0:
@@ -201,7 +212,7 @@ def myers_valleys(patw, m: int, rows, emit_lo, emit_hi, k_units: int):
             _build.ptr(patw, "patw", torch.int32, dev, (4, W)),
             _build.ptr(emit_lo, "emit_lo", torch.int32, dev, (R,)),
             _build.ptr(emit_hi, "emit_hi", torch.int32, dev, (R,)),
-            out.data_ptr(), R, L, W, (m - 1) % 32, m, int(k_units),
+            out.data_ptr(), R, L, W, (m - 1) % 32, m, int(k_units), seg, S,
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, "bb_myers_valleys")

@@ -20,7 +20,10 @@ Phases (any failure exits non-zero and prints no result line):
    ``right_pos`` lanes), the Myers map mode included; then the rank and
    window kernels' edge cases at small shapes (pattern lengths 1 to 128,
    odd and short windows, ``w_len`` 0 and past the window, ``end_j =
-   0``, ``right_pos`` at 1 and at W, partial blocks, both rank forms);
+   0``, ``right_pos`` at 1 and at W, partial blocks, both rank forms),
+   and the Myers kernel's in both modes on rows crafted around its
+   segment boundaries (flank lengths 1 to 128, at the wrapper's plan
+   and at every segment count S);
 3. the ends path — 16384 simulated SQK-RBK114-96 reads through the
    port's ``demux_using_kit`` (two-tier ends scan) in 2048-read batches;
 4. the whole-read paths — 16448 such reads, every 16th with a 9-20 kb
@@ -28,7 +31,10 @@ Phases (any failure exits non-zero and prints no result line):
    through the port's ``annotate --kit`` (whole-read scan) and ``kit
    --full-scan``.  16448 = 8 x 2048 + 64: the last batch's hit capacity
    is below 256, so it ranks with the non-split rank form;
-5. kernels at the whole-read paths' shapes, recorded from their batches.
+5. kernels at the whole-read paths' shapes, recorded from their batches,
+   and the Myers kernel on the arguments of one full batch of the ends
+   path and of ``annotate``, captured as the path passed them
+   ("captured" entries, with every segment count S timed there too).
 
 Every path runs with each kernel's launch count set to 0 just before it
 and read just after; every kernel of the path must have launched.
@@ -46,6 +52,9 @@ phase fails if neither gives a device time.  ``timing`` names the
 method; ``events_ms`` is the earlier reading (``reps`` back-to-back
 wrapper calls between CUDA events, host enqueue included) and
 ``plain_ms`` one call of the plain version between CUDA events.
+``--kernels-only`` adds ``sweep`` lines: every (rows, group) instance
+of the rank and window kernels and every segment count S of the Myers
+kernel at each path shape.
 ``ptxas`` is the kernel instance's registers, shared memory, stack frame
 and spill bytes from the build's ``-Xptxas -v`` output.
 
@@ -269,6 +278,24 @@ def _bound(n_bytes: float, int_ops: float, f32_ops: float = 0.0):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+MYERS_SRC = "barbell_tpu_torch/csrc/myers.cu"
+MYERS_REP = "barbell_tpu/ops/pallas_myers.py:71"
+
+
+def _myers_bound(args, out_bytes):
+    """Bound of a Myers call on ``args`` (the wrapper's arguments) that
+    writes ``out_bytes``: per row the columns its output needs,
+    [max(0, lo - m - k - 1), min(L, hi + 2)), none when lo > hi, read once
+    and scanned at MYERS_PER_WORD * W + MYERS_PER_POS operations each."""
+    patw, m, rows, lo, hi, k = args[:6]
+    R, L = rows.shape
+    lo, hi = lo.long().cpu().numpy(), hi.long().cpu().numpy()
+    span = np.minimum(L, hi + 2) - np.maximum(0, lo - m - k - 1)
+    cols = int(np.where(lo <= hi, np.maximum(span, 0), 0).sum())
+    ops = cols * (MYERS_PER_WORD * patw.shape[1] + MYERS_PER_POS)
+    return _bound(cols + 8 * R + out_bytes, ops)
+
+
 def _plant(rng, L, n_rows, pattern, copies):
     """Random base rows with noisy copies of ``pattern``, IUPAC N bytes
     and zero padding tails."""
@@ -385,32 +412,69 @@ class KernelCheck:
         lo[:16], hi[:16] = 300, 100  # empty emission ranges
         lo, hi = self.t(lo), self.t(hi)
         klmul = window.UNIT * (L + 2)
-        W = gp.tensors.patw.shape[1]
-        ops = R * L * (MYERS_PER_WORD * W + MYERS_PER_POS)
-        shape = f"rows [{R}, {L}], m = {gp.m}"
-        src, rep = "barbell_tpu_torch/csrc/myers.cu", "barbell_tpu/ops/pallas_myers.py:71"
         args = (gp.tensors.patw, gp.m, rows, lo, hi, gp.k_units, klmul)
-        self.record(
-            "myers_topk", src, rep + " (top-K mode, via :318)", shape,
-            lambda: myers.myers_topk(*args),
-            lambda: myers.myers_topk_plain(*args),
-            _bound(R * L + 8 * R + 36 * R, ops),
-            (f"myers_kernelILi{W}ELb1EE",),
-        )
+        self.myers_topk(args, f"rows [{R}, {L}], m = {gp.m}", self.sweep)
         cnt = myers.myers_topk(*args)[1]
         log(f"  rows {R}x{L}: {int((cnt > myers.TOPK).sum())} rows with "
             f"> 8 valleys, {int((cnt == 0).sum())} with none")
         if valleys:
-            vargs = (gp.tensors.patw, gp.m, rows, lo, hi, gp.k_units)
+            vargs = args[:-1]
             mp = myers.myers_valleys(*vargs)
             log(f"  map {R}x{L}: {int((mp < 255).sum())} valleys")
             self.record(
-                "myers_valleys", src, rep + " (map mode, via :253/:270)", shape,
+                "myers_valleys", MYERS_SRC, MYERS_REP + " (map mode, via :253/:270)",
+                f"rows [{R}, {L}], m = {gp.m}",
                 lambda: myers.myers_valleys(*vargs),
                 lambda: myers.myers_valleys_plain(*vargs),
-                _bound(2 * R * L + 8 * R, ops),
-                (f"myers_kernelILi{W}ELb0EE",),
+                _myers_bound(vargs, R * L),
+                (f"myers_kernelILi{vargs[0].shape[1]}ELb0EE",),
             )
+
+    def myers_topk(self, args, shape, sweep=False):
+        """Record the top-K mode on ``args`` (the wrapper's arguments);
+        ``sweep`` also times every segment count S of the kernel there."""
+        from barbell_tpu_torch.ops import myers
+
+        W = args[0].shape[1]
+        entry = self.record(
+            "myers_topk", MYERS_SRC, MYERS_REP + " (top-K mode, via :318)", shape,
+            lambda: myers.myers_topk(*args),
+            lambda: myers.myers_topk_plain(*args),
+            _myers_bound(args, 36 * args[2].shape[0]),
+            (f"myers_kernelILi{W}ELb1EE",),
+        )
+        if sweep and hasattr(myers, "plan"):
+            entry["sweep"] = self._sweep_segments(args, entry["ptxas"]["registers"])
+        return entry
+
+    def _sweep_segments(self, args, regs, reps=20):
+        """Every segment count S <= 32 of the Myers kernel on ``args``,
+        launched through the wrapper with its ``plan`` swapped: equal
+        outputs, its time (CUDA-graph method) and ptxas registers (one
+        instance serves every S)."""
+        from barbell_tpu_torch import _build
+        from barbell_tpu_torch.ops import myers
+
+        m, rows, k = args[1], args[2], args[5]
+        R, L = rows.shape
+        want = myers.myers_topk(*args)
+        chosen, out = myers.plan, []
+        log(f"  sweep myers_topk [{R}, {L}]: the plan picks (SEG, S) = "
+            f"{chosen(m, k, L, R)}")
+        try:
+            S = 1
+            while S <= min(32, L // 16):
+                seg = _build.segment_size(L, S)
+                myers.plan = lambda *_a, seg=seg, S=S: (seg, S)
+                _diff(myers.myers_topk(*args), want)
+                ms, _ = _time(lambda: myers.myers_topk(*args), reps)
+                log(f"  sweep myers_topk [{R}, {L}]: S = {S}, SEG = {seg}: "
+                    f"equal, {ms:.4f} ms, {regs} registers")
+                out.append({"S": S, "SEG": seg, "ms": ms, "registers": regs})
+                S *= 2
+        finally:
+            myers.plan = chosen
+        return out
 
     # --- window valley over the boundary lanes (width m + k + 3)
     def window_valleys(self, H):
@@ -564,10 +628,10 @@ def check_ends_kernels(engine, sweep: bool = False) -> list:
     rows [8192, 512] (2048 reads + their rc twins) and the deep tier's
     [1024, 1024] rows, 16384 boundary lanes, a 2816-lane hit capacity;
     ``sweep`` also times every (rows, group) instance of the rank and
-    window kernels there."""
+    window kernels and every segment count of the Myers kernel there."""
     kc = KernelCheck(engine, "ends", SEED, sweep)
     kc.myers(8192, 512, 2)
-    deep = KernelCheck(engine, "ends (deep tier)", SEED + 1)
+    deep = KernelCheck(engine, "ends (deep tier)", SEED + 1, sweep)
     deep.myers(1024, 1024, 10)  # some rows carry > 8 valleys
     kc.window_valleys(16384)
     kc.window_trace(2816)
@@ -674,7 +738,107 @@ def check_edge_kernels(alpha) -> int:
         n += 1
     if most_valleys <= window.VTOPK:
         raise AssertionError("no edge-case lane carried more than 8 valleys")
+    n += check_myers_edges(rng, t)
     torch.cuda.synchronize()
+    return n
+
+
+def _myers_crafted(rng, pattern, L, k):
+    """(rows, emit_lo, emit_hi) built around every column a that is a
+    multiple of 16 (each plan's segment boundaries are among them): a
+    cost-k alignment of k insertions (exactly m + k columns) ending at
+    every offset a-2 .. a+2, a run of N wider than the pattern (a plateau)
+    across a; a row of back-to-back copies (more than 8 valleys, several
+    segments); rows with noisy copies, IUPAC N and zero padding past
+    ``emit_hi``, among them an empty range, a range that ends in the
+    first segment and one that starts mid-word.  An odd row count."""
+    bases = np.array([1, 2, 4, 8], dtype=np.uint8)
+    m, span = len(pattern), len(pattern) + k
+    rows, lo, hi = [], [], []
+
+    def add(row, a=0, b=L - 1):
+        rows.append(row)
+        lo.append(a)
+        hi.append(b)
+
+    for a in range(16, L, 16):
+        for d in range(-2, 3):
+            end = a + d
+            if end - span < 0 or end > L - 1:
+                continue
+            text = list(pattern)
+            for p in sorted(rng.integers(1, max(2, m), k), reverse=True):
+                text.insert(int(p), bases[rng.integers(0, 4)])
+            row = bases[rng.integers(0, 4, L)]
+            row[end - span : end] = text
+            add(row)
+        row = bases[rng.integers(0, 4, L)]
+        row[max(0, a - m - 1) : a + 2] = 15
+        add(row)
+    row = bases[rng.integers(0, 4, L)]
+    for pos in range(1, L - m + 1, m + 3):
+        row[pos : pos + m] = pattern
+    add(row)
+    for i in range(13 - len(rows) % 2):
+        row = _plant(rng, L, 1, pattern, 2)[0]
+        tec = int(rng.integers(L // 2, L + 1))
+        row[tec:] = 0
+        if i == 0:
+            add(row, 7, 3)  # empty range
+        elif i == 1:
+            add(row, 0, 9)  # ends in the first segment
+        elif i == 2:
+            add(row, min(L - 1, int(rng.integers(L // 4, L)) | 5), L - 1)
+        else:
+            add(row, int(rng.integers(0, 3)), tec - 2)
+    return np.stack(rows), np.array(lo, np.int32), np.array(hi, np.int32)
+
+
+def check_myers_edges(rng, t) -> int:
+    """The Myers kernel in both modes against its plain versions on rows
+    crafted around segment boundaries (``_myers_crafted``), exact, for
+    flank lengths 1 to 128 (1-4 pattern words), L = 16 and L not a
+    multiple of SEG, an odd row count (never a whole block): at the
+    wrapper's plan and at every segment count S, S = 1 included, forced
+    through the plan.  Returns the number of cases."""
+    from barbell_tpu_torch import _build
+    from barbell_tpu_torch.ops import myers, window
+
+    n = 0
+    for m, L in ((1, 64), (9, 16), (9, 256), (32, 208), (33, 256), (90, 512),
+                 (90, 1024), (128, 512)):
+        pattern = np.array([1, 2, 4, 8], dtype=np.uint8)[rng.integers(0, 4, m)]
+        if m > 4:
+            pattern[rng.integers(1, m - 1)] = 15
+        k = 0 if m == 1 else (20 if m == 90 else max(2, m // 5))
+        rows, lo, hi = _myers_crafted(rng, pattern, L, k)
+        words, _, _ = myers.pattern_words(pattern)
+        args = (t(words.view(np.int32)), m, t(rows), t(lo), t(hi), k)
+        klmul = window.UNIT * (L + 2)
+        want_k = myers.myers_topk_plain(*args, klmul)
+        want_m = myers.myers_valleys_plain(*args)
+        R = rows.shape[0]
+        if not hasattr(myers, "plan"):
+            plans = [None]
+        else:
+            plans = [myers.plan(m, k, L, R)] + [
+                (_build.segment_size(L, 1 << i), 1 << i)
+                for i in range(6) if 1 << i <= L // 16]
+        chosen = getattr(myers, "plan", None)
+        try:
+            for p in plans:
+                if p is not None:
+                    myers.plan = lambda *_a, p=p: p
+                _diff(myers.myers_topk(*args, klmul), want_k)
+                _diff((myers.myers_valleys(*args),), (want_m,))
+        finally:
+            if chosen is not None:
+                myers.plan = chosen
+        cnt = want_k[1]
+        log(f"edge myers m = {m}, k = {k}, L = {L}, R = {R}: both modes equal "
+            f"to plain at (SEG, S) = {plans}; {int((cnt > 0).sum())} rows with "
+            f"valleys, most valleys in a row {int(cnt.max())}")
+        n += 1
     return n
 
 
@@ -684,12 +848,14 @@ WHOLE_READ_BATCHES = ({"L": 4096, "R_total": 6144, "H_cap": 6144},
                       {"L": 4096, "R_total": 192, "H_cap": 192})
 
 
-def check_whole_read_kernels(engine, batches) -> list:
+def check_whole_read_kernels(engine, batches, sweep: bool = False) -> list:
     """Every kernel at the whole-read paths' recorded shapes: the largest
-    batch's rows and hit capacity, and the non-split batch's."""
+    batch's rows and hit capacity, and the non-split batch's; ``sweep``
+    also times every instance of the rank and window kernels and every
+    segment count of the Myers kernel there."""
     big = max(batches, key=lambda b: b["R_total"] * b["L"])
     ns = [b for b in batches if b["H_cap"] % 256]
-    kc = KernelCheck(engine, "whole-read", SEED + 2)
+    kc = KernelCheck(engine, "whole-read", SEED + 2, sweep)
     kc.myers(big["R_total"], big["L"], 2, valleys=False)
     kc.window_valleys(2 * big["R_total"])
     kc.window_trace(big["H_cap"])
@@ -727,6 +893,38 @@ class BatchRecorder:
 
     def __exit__(self, *exc):
         self.cls._call = self.orig
+
+
+class MyersCapture:
+    """Keeps a copy of the arguments of the largest ``myers_topk`` call
+    (one full batch's) that the fused device call makes while installed;
+    the call itself goes on to the wrapper, which counts its launch."""
+
+    def __init__(self):
+        import threading
+
+        from barbell_tpu_torch.ops import composite
+
+        self.mod = composite
+        self.orig = composite.myers_topk
+        self.lock = threading.Lock()
+        self.args = None
+
+    def __enter__(self):
+        orig = self.orig
+
+        def call(patw, m, rows, emit_lo, emit_hi, k_units, klmul):
+            with self.lock:
+                if self.args is None or rows.numel() > self.args[2].numel():
+                    self.args = (patw.clone(), m, rows.clone(), emit_lo.clone(),
+                                 emit_hi.clone(), k_units, klmul)
+            return orig(patw, m, rows, emit_lo, emit_hi, k_units, klmul)
+
+        self.mod.myers_topk = call
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.myers_topk = self.orig
 
 
 def _kit(fq, out, backend, full_scan=False):
@@ -781,11 +979,12 @@ def _quiet(d, name):
 
 def run_path(name, run, fq, d, reads, wrappers, required, smi):
     """Drive one path with every launch count at 0 just before it; check
-    its launches and accuracy; return (launches, batches)."""
+    its launches and accuracy; return (launches, batches, the arguments
+    of its largest Myers call)."""
     for w in wrappers:
         w.launches = 0
     torch.cuda.synchronize()
-    with BatchRecorder() as rec, _quiet(d, name):
+    with BatchRecorder() as rec, MyersCapture() as cap, _quiet(d, name):
         t0 = time.perf_counter()
         run(fq, os.path.join(d, name), "torch")
         torch.cuda.synchronize()
@@ -806,7 +1005,7 @@ def run_path(name, run, fq, d, reads, wrappers, required, smi):
     log(f"[{name}] smoke figure (not a benchmark): {len(reads)} reads in "
         f"{dt:.3f}s = {len(reads) / dt:.0f} reads/s, end to end incl. FASTQ "
         f"IO, on {smi}")
-    return launches, rec.batches
+    return launches, rec.batches, cap.args
 
 
 def oracle_parity(name, run, reads, d):
@@ -839,8 +1038,8 @@ def main() -> int:
     ap.add_argument("--kernels-only", action="store_true",
                     help="run the probe and the kernel phases only (the "
                          "whole-read shapes as a full run records them), "
-                         "and time every rank and window instance at the "
-                         "ends shapes")
+                         "and time every rank and window instance and "
+                         "every Myers segment count at each path shape")
     ap.add_argument("--package", metavar="DIR",
                     help="import barbell_tpu_torch from DIR (another checkout)")
     opts = ap.parse_args()
@@ -860,7 +1059,7 @@ def main() -> int:
     log(f"{n_edge} edge cases equal to their plain versions in "
         f"{time.perf_counter() - t0:.1f}s")
     if opts.kernels_only:
-        kernels += check_whole_read_kernels(engine, WHOLE_READ_BATCHES)
+        kernels += check_whole_read_kernels(engine, WHOLE_READ_BATCHES, sweep=True)
         print(json.dumps({"kernels": kernels}))
         print(smi)
         return 0
@@ -872,6 +1071,7 @@ def main() -> int:
                "window_interval", "rank_pass1_split"]
     by_path = {}
     whole_batches = []
+    captured = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as d:
         t0 = time.perf_counter()
         ends_reads = make_reads_rbk(N_ENDS, SEED)
@@ -885,7 +1085,7 @@ def main() -> int:
             f"({n_long} longer than 8192 bases) in "
             f"{time.perf_counter() - t0:.1f}s")
 
-        by_path["kit"], _ = run_path(
+        by_path["kit"], _, captured["ends (captured)"] = run_path(
             "kit", _kit, fq_ends, d, ends_reads, wrappers, on_path, smi)
         oracle_parity("kit", _kit, ends_reads, d)
 
@@ -893,19 +1093,27 @@ def main() -> int:
             _kit(fq, out, backend, full_scan=True)
 
         for name, run in (("annotate", _annotate), ("kit_full_scan", kit_full)):
-            by_path[name], batches = run_path(
+            by_path[name], batches, args = run_path(
                 name, run, fq_whole, d, whole_reads, wrappers,
                 on_path + ["rank_pass1"], smi)
+            if name == "annotate":
+                captured["whole-read (captured)"] = args
             whole_batches += batches
             oracle_parity(name, run, whole_reads, d)
 
     kernels += check_whole_read_kernels(engine, whole_batches)
+    for path, args in captured.items():
+        R, L = args[2].shape
+        kc = KernelCheck(engine, path, SEED + 4)
+        kc.myers_topk(args, f"rows [{R}, {L}], m = {args[1]}, captured",
+                      sweep=True)["inputs"] = "captured"
+        kernels += kc.entries
     for entry in kernels:
         n = entry["name"]
         entry["launches_by_path"] = {p: c[n] for p, c in by_path.items()}
         if entry["path"].startswith("ends"):
             entry["launches"] = by_path["kit"][n]
-        elif entry["path"] == "whole-read":
+        elif entry["path"].startswith("whole-read"):
             entry["launches"] = by_path["annotate"][n] + by_path["kit_full_scan"][n]
     print(json.dumps({"kernels": kernels}))
     print(smi)
