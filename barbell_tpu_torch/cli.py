@@ -1,11 +1,12 @@
 """Command line of the port: ``python -m barbell_tpu_torch <command>``.
 
-``annotate`` and ``kit`` run on the port's engine (``--backend torch``
-on the CUDA device, or the scalar ``oracle``); ``filter``, ``trim``,
-``inspect``, ``kits`` and ``sim`` are host-only, as in barbell_tpu.
-Flag names and defaults follow barbell_tpu's CLI.  ``compare``, ``kit
---use-extended``, ``kit --no-stream`` / ``--verbose`` and ``annotate``'s
-multi-host sharding are not ported yet and exit with status 2.
+``annotate``, ``kit`` and ``compare`` run on the port's engine
+(``--backend torch`` on the CUDA device, or the scalar ``oracle``;
+``compare`` also takes ``auto``, which is ``torch``); ``filter``,
+``trim``, ``inspect``, ``kits`` and ``sim`` are host-only, as in
+barbell_tpu.  Flag names and defaults follow barbell_tpu's CLI.  What
+is not ported yet (``annotate``'s multi-host sharding and
+``BARBELL_PROFILE_DIR`` tracing) exits with status 2.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import sys
 from typing import List, Optional
 
 from .models.records import BarcodeType
+from .sim.ingest import IMPORT_TOOLS
 from .stages.annotate import (
     BACKENDS,
     AnnotateConfig,
@@ -26,7 +28,6 @@ from .stages.inspect import inspect
 from .stages.kit import KitRunConfig, demux_using_kit
 from .stages.trim import LabelConfig, trim_matches
 
-NOT_PORTED = ("compare",)
 DEVICE = "cuda"  # --backend torch
 
 
@@ -104,18 +105,26 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-t", "--threads", type=int, default=10)
     p.add_argument("-o", "--output", required=True)
     p.add_argument("--maximize", action="store_true")
+    p.add_argument("--verbose", action="store_true")
     p.add_argument("--min-score", type=float, default=0.2)
     p.add_argument("--min-score-diff", type=float, default=0.1)
     p.add_argument("--flank-max-errors", type=int, default=None)
     p.add_argument("--failed-out")
-    p.add_argument("--use-extended", action="store_true",
-                   help="not ported yet")
+    p.add_argument("--use-extended", action="store_true")
     p.add_argument("--alpha", type=float, default=0.4)
     p.add_argument("--gzip", action="store_true")
     p.add_argument(
         "--full-scan", action="store_true",
         help="Scan whole reads instead of the preset-window ends-only "
-        "fast path (the presets positionally reject mid-read hits).",
+        "fast path (the presets positionally reject mid-read hits; "
+        "--use-extended implies full scan).",
+    )
+    p.add_argument(
+        "--no-stream", action="store_true",
+        help="Run the four stages as separate file passes instead of the "
+        "fused one-pass pipeline. Outputs are byte-identical unless the "
+        "input reuses a read id non-adjacently; --verbose implies this "
+        "mode (per-stage log files).",
     )
     _add_backend_args(p)
 
@@ -128,14 +137,45 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--groups", nargs="+", default=None, help="Subset of GroupI..GroupVI")
     p.add_argument("--num-barcodes", type=int, default=96)
+
+    p = sub.add_parser(
+        "compare",
+        help="Run the kit pipeline over simulated groups and score it, or "
+        "score another tool's demux output (--import-tool)",
+    )
+    p.add_argument("--sim-dir", help="Simulated data directory (pipeline mode)")
+    p.add_argument("-o", "--output", help="Working directory (pipeline mode)")
+    p.add_argument("-k", "--kit", default="SQK-RBK110-96")
+    p.add_argument("--maximize", action="store_true")
+    p.add_argument("--verify", action="store_true",
+                   help="Independently re-verify assignments with a direct search")
+    p.add_argument("--time", action="store_true", dest="time_runs",
+                   help="Report per-group wall clock and reads/s")
+    p.add_argument("--backend", choices=["auto", *BACKENDS], default="auto",
+                   help="auto and torch: the batched pipeline on the CUDA "
+                   "device; oracle: the scalar NumPy engine")
+    p.add_argument("--import-tool", choices=list(IMPORT_TOOLS),
+                   help="Score another tool's output instead of running "
+                   "the pipeline")
+    p.add_argument("--import-path",
+                   help="The tool's output folder (dorado/barbell), "
+                   "classified_reads.fastq (flexiplex), or a "
+                   "read_id<TAB>label table (tsv)")
+    p.add_argument("--truth", help="Ground-truth read_id<TAB>label TSV")
+    p.add_argument("--reads", help="Original input FASTQ (read universe; "
+                   "needed for --verify and construct re-counts)")
+    p.add_argument("--bar-file",
+                   help="flexiplex: seq<TAB>label barcode map file")
+    p.add_argument("--normalized-out",
+                   help="Write the normalized read_id/barcode/len/"
+                   "n_flank_matches table here")
+    p.add_argument("--trimmed-out",
+                   help="Write the normalized trimmed FASTA here")
     return parser
 
 
 def main(argv: Optional[List[str]] = None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
-    if argv and argv[0] in NOT_PORTED:
-        print(f"Error: '{argv[0]}' is not ported yet (see ROADMAP.md)")
-        return 2
     args = build_parser().parse_args(argv)
     try:
         return _dispatch(args)
@@ -225,6 +265,8 @@ def _dispatch(args) -> int:
             gzip=args.gzip,
             backend=args.backend,
             batch_size=args.batch_size,
+            verbose=args.verbose,
+            stream=not args.no_stream,
             full_scan=args.full_scan,
         )
         demux_using_kit(args.input, config, device=DEVICE)
@@ -247,5 +289,41 @@ def _dispatch(args) -> int:
             groups=tuple(args.groups) if args.groups else GROUPS,
         )
         print(f"Simulated data written to {args.output}")
+
+    elif args.command == "compare":
+        from .sim.compare import print_reports, run_compare, run_import_compare
+
+        if args.import_tool:
+            if not args.import_path or not args.truth:
+                raise ValueError("--import-tool needs --import-path and --truth")
+            report = run_import_compare(
+                args.import_tool,
+                args.import_path,
+                args.truth,
+                reads_path=args.reads,
+                bar_file=args.bar_file,
+                normalized_out=args.normalized_out,
+                trimmed_out=args.trimmed_out,
+                verify=args.verify,
+                kit=args.kit if args.verify else None,
+            )
+            print_reports([report])
+        else:
+            if not args.sim_dir or not args.output:
+                raise ValueError(
+                    "compare needs --sim-dir and -o/--output (or "
+                    "--import-tool to score an external tool's output)"
+                )
+            reports = run_compare(
+                args.sim_dir,
+                args.output,
+                kit=args.kit,
+                maximize=args.maximize,
+                backend=args.backend,
+                verify=args.verify,
+                time_runs=args.time_runs,
+                device=DEVICE,
+            )
+            print_reports(reports)
 
     return 0

@@ -19,9 +19,18 @@ so every within-threshold flank match and its padded barcode window
 lies inside one chunk row; the chunks' claim ranges partition the
 read's end positions, so chunked results equal whole-read results.
 
-Not ported here (each raises with a pointer to ROADMAP.md): the nibble
-pack mode used when the native IO library is missing or a batch carries
-more than 4096 non-ACGT bytes, and multi-device meshes.
+The batch's host form follows the JAX engine's rules: concatenated
+2-bit codes (pack mode 2) when the native IO library is there and the
+batch carries at most 4096 non-ACGT bytes, nibble rows (pack mode 0)
+otherwise or under ``BARBELL_PACK_MODE=0``; metadata derived on the
+device from the row descriptors (``meta_mode='desc'``) for pack mode 2
+and reads under 2**29 bases, uploaded (``'wire'``) otherwise or under
+``BARBELL_META_MODE=wire``.  A kit with several barcode groups (``kit
+--use-extended``, the two-group PCR and cDNA kits) runs every group in
+one device call per batch with one fetch (``last_dispatch ==
+"single-fused"``).
+
+Not ported here: the padded 2-bit pack mode 1 and multi-device meshes.
 """
 
 from __future__ import annotations
@@ -55,7 +64,7 @@ _CAT_BUCKET = 128 * 1024  # concatenated-code buffer size floor
 #: batches in flight in engine_map_batches
 PIPELINE_DEPTH = 8
 
-_NOT_PORTED = "not ported yet (see ROADMAP.md, 'Off the slice')"
+_NOT_PORTED = "not ported yet (see ROADMAP.md, 'Off the main path')"
 
 
 def engine_map_batches(engine, batches, method: str = "demux_batch_table"):
@@ -137,14 +146,31 @@ class _Plan:
 class _Mat:
     """One batch's materialized host arrays (see _materialize)."""
 
-    __slots__ = ("host_packed", "exc", "meta", "row_read", "rowdesc",
-                 "chunk_meta")
+    __slots__ = ("host_packed", "row_start", "exc", "pack_mode",
+                 "simple_idx", "meta", "row_read", "rowdesc", "chunk_meta")
+
+
+@dataclass
+class _DevBatch:
+    """One batch's uploaded arrays (``parts``, named as
+    :func:`~barbell_tpu_torch.ops.composite.batch_rows` reads them) and
+    the shapes every group's call on it shares."""
+
+    parts: Dict[str, torch.Tensor]
+    pack_mode: int
+    L: int
+    step: int
+    S_pad: int
+    R_total: int
 
 
 class TorchDemuxEngine:
     """Demux engine: whole-read scan (``ends_window`` None) or ends scan;
     ``device`` is where the fused call runs (``"cuda"`` launches the
-    hand-written kernels, ``"cpu"`` runs their plain PyTorch versions)."""
+    hand-written kernels, ``"cpu"`` runs their plain PyTorch versions);
+    ``meta_mode`` (default: ``BARBELL_META_MODE``, else ``'desc'``)
+    ``'wire'`` uploads every batch's metadata instead of deriving it on
+    the device."""
 
     def __init__(
         self,
@@ -155,17 +181,26 @@ class TorchDemuxEngine:
         max_row_len: int = MAX_ROW_LEN,
         ends_window=None,  # None | int (symmetric) | (W_left, W_right)
         device="cuda",
+        meta_mode: Optional[str] = None,  # 'desc' | 'wire'
     ):
         self.device = torch.device(device)
         # build what the batches need once, here, and not inside the
-        # first batch: the kernels and the native 2-bit encoder
+        # first batch: the kernels and the native 2-bit encoder (without
+        # it, batches take the nibble pack mode)
         if self.device.type == "cuda":
             _build.load()
-        if get_lib() is None:
-            raise NotImplementedError(
-                f"the native IO library is unavailable (needs g++ and zlib); "
-                f"the nibble pack mode that would replace it is {_NOT_PORTED}"
-            )
+        get_lib()
+        if meta_mode is None:
+            meta_mode = os.environ.get("BARBELL_META_MODE", "desc")
+        if meta_mode not in ("wire", "desc"):
+            raise ValueError(f"meta_mode must be 'wire' or 'desc', got {meta_mode!r}")
+        self.meta_mode = meta_mode
+        #: False dispatches each group of a batch on its own: the
+        #: per-group path the fused call is held equal to
+        self.fuse_groups = True
+        #: the last batch's dispatch: "single-fused" (every group in one
+        #: device call) or "single" (a call per group)
+        self.last_dispatch: Optional[str] = None
         self.groups = list(groups)
         self.alpha = float(alpha)
         if not 0.0 <= self.alpha <= 1.0:
@@ -273,11 +308,6 @@ class TorchDemuxEngine:
         lens = np.array([len(s) for s in seq_bytes], dtype=np.int64)
         if B == 0 or lens.max(initial=0) == 0:
             return hittable.empty_table(read_ids, lens, self.labels)
-        if int(lens.max()) >= 1 << 29:
-            raise NotImplementedError(
-                f"reads of 2**29 bases or more need the wire-metadata mode, "
-                f"which is {_NOT_PORTED}"
-            )
 
         L = self._choose_L(lens)
         step = L - PADDING - self.halo
@@ -301,37 +331,57 @@ class TorchDemuxEngine:
         # 64 means <= 64 real entries, so upload only that prefix
         if exc.shape[0] > 64 and exc[64, 0] == R_host_pad * L:
             exc = exc[:64]
-        dev = self.device
-        dev_in = (
-            torch.from_numpy(mat.host_packed).to(dev),
-            torch.from_numpy(mat.rowdesc).to(dev),
-            torch.from_numpy(mat.chunk_meta).to(dev),
-            torch.from_numpy(np.ascontiguousarray(exc)).to(dev),
+        # descriptor metadata needs the 2-bit codes, and the descriptor
+        # packs read lengths in 29 bits
+        if (self.meta_mode == "desc" and mat.pack_mode == 2
+                and int(lens.max()) < 1 << 29):
+            parts = dict(host_packed=mat.host_packed, rowdesc=mat.rowdesc,
+                         chunk_meta=mat.chunk_meta, exc=exc)
+        else:
+            parts = dict(host_packed=mat.host_packed,
+                         meta=comp.pack_meta_np(mat.meta),
+                         simple_idx=mat.simple_idx, exc=exc,
+                         row_start=mat.row_start)
+        batch = _DevBatch(
+            parts={k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+                   for k, v in parts.items()},
+            pack_mode=mat.pack_mode, L=L, step=step, S_pad=S_pad,
+            R_total=R_total_pad,
         )
 
         packets: List[tuple] = []  # (GroupPlan, packet dict) in plan order
         overflow_reads: set = set()
         H_cap = self._h_cap(B, plan, R_total_pad)
-        for gplan in self.plans:
-            out_np = self._call(gplan, dev_in, L, step, H_cap, S_pad)
-            cap = H_cap
+        nw = _over_words(R_total_pad)
+        if len(self.plans) > 1 and self.fuse_groups:
+            # every group in one device call and one fetch
+            self.last_dispatch = "single-fused"
+            out_all = self._call(self.plans, batch, H_cap)
+            pending, off = [], 0
+            for gplan in self.plans:
+                n = H_cap * self._rec_wire(gplan, L, R_total_pad)[0] + nw + 1
+                pending.append((gplan, out_all[off : off + n]))
+                off += n
+        else:
+            self.last_dispatch = "single"
+            pending = [(g, self._call((g,), batch, H_cap)) for g in self.plans]
+        for gplan, out_np in pending:
             wcols, wbits = self._rec_wire(gplan, L, R_total_pad)
-            nw = _over_words(R_total_pad)
-            rec = self._unpack_rec(out_np, cap, wbits)
-            over = out_np[cap * wcols : cap * wcols + nw]
+            cap = H_cap
             total = int(out_np[-1])
             if total > cap:
-                # Hit-dense batch: one retry at a larger capacity (sticky —
-                # later batches start there), then whole-batch fallback.
+                # Hit-dense batch: one retry of this group at a larger
+                # capacity (sticky — later batches start there), then
+                # whole-batch fallback.
                 cap = _retry_cap(total, H_cap)
                 self._h_cap_hint = max(self._h_cap_hint, cap)
-                out_np = self._call(gplan, dev_in, L, step, cap, S_pad)
-                rec = self._unpack_rec(out_np, cap, wbits)
-                over = out_np[cap * wcols : cap * wcols + nw]
+                out_np = self._call((gplan,), batch, cap)
                 total = int(out_np[-1])
                 if total > cap:
                     overflow_reads.update(range(B))
                     continue
+            rec = self._unpack_rec(out_np, cap, wbits)
+            over = out_np[cap * wcols : cap * wcols + nw]
             for r in _over_rows(over, R_total_pad):
                 if mat.row_read[r] >= 0:
                     overflow_reads.add(int(mat.row_read[r]))
@@ -458,19 +508,27 @@ class TorchDemuxEngine:
         return plan
 
     def _materialize(
-        self, plan, seq_bytes, lens, L: int, R_host_pad: int, S_pad: int
+        self, plan, seq_bytes, lens, L: int, R_host_pad: int, S_pad: int,
+        force_nibble: bool = False,
     ) -> _Mat:
-        """The batch's host arrays: packed rows, exceptions, the row
-        descriptors the device derives metadata from (plus the packed
-        metadata of the chunk rows), and the full metadata on the host
-        (the packet assembly reads it)."""
+        """The batch's host arrays: packed rows (``force_nibble``: nibble
+        rows whatever the batch holds), exceptions, the row descriptors
+        the device derives metadata from (plus the packed metadata of
+        the chunk rows), and the full metadata, which the packet
+        assembly reads and the wire-metadata mode uploads."""
         R_total_pad = R_host_pad + S_pad
-        host_packed, exc = self._pack_host_rows(seq_bytes, plan, R_host_pad, L)
+        host_packed, row_start, exc, pack_mode = self._pack_host_rows(
+            seq_bytes, plan, R_host_pad, L, force_nibble=force_nibble
+        )
 
         meta = np.zeros((R_total_pad, comp.META_COLS), dtype=np.int32)
         meta[:, comp.M_HI] = -1
         row_read = np.full(R_total_pad, -1, dtype=np.int64)
         rowdesc = np.zeros(R_host_pad, dtype=np.int32)
+        # the host row each twin flips (wire metadata); rows [F, S_pad)
+        # of the twin block are invalid padding
+        simple_idx = np.zeros(S_pad, dtype=np.int32)
+        simple_idx[: plan.F] = np.arange(plan.F, dtype=np.int32)
 
         # Simple reads fill rows [0, S) (fwd) and [R_host_pad,
         # R_host_pad + S) (their rc twins).
@@ -595,7 +653,10 @@ class TorchDemuxEngine:
 
         mat = _Mat()
         mat.host_packed = host_packed
+        mat.row_start = row_start
         mat.exc = exc
+        mat.pack_mode = pack_mode
+        mat.simple_idx = simple_idx
         mat.meta = meta
         mat.row_read = row_read
         mat.rowdesc = rowdesc
@@ -628,19 +689,28 @@ class TorchDemuxEngine:
             parts.append(s[len(s) - W_r :])
         return b"".join(parts), offs, ls
 
-    def _pack_host_rows(self, seq_bytes, plan, R_host_pad: int, L: int):
-        """-> (flat codes, exceptions): concatenated 2-bit base codes,
-        rows back to back at CAT_ALIGN-byte starts (the device re-derives
-        the starts with the same formula), encoded natively straight from
-        the raw read bytes — simple reads and end windows with
+    def _pack_host_rows(self, seq_bytes, plan, R_host_pad: int, L: int,
+                        force_nibble: bool = False):
+        """-> (packed, row starts, exceptions, pack mode).
+
+        Pack mode 2: concatenated 2-bit base codes, rows back to back at
+        CAT_ALIGN-byte starts (descriptor metadata re-derives the starts
+        on the device with the same formula), encoded natively straight
+        from the raw read bytes — simple reads and end windows with
         ``bbio_encode_pack2_cat``, fwd + rc chunk rows with
         ``bbio_encode_pack2_chunks``; N/IUPAC/junk bytes ride an
         exception list of (flat_pos, mask) pairs whose sentinel position
-        (one past the padded rows) the device drops."""
+        (one past the padded rows) the device drops.  A batch with more
+        than _EXC_CAP such bytes, a host without the native library,
+        ``force_nibble`` or ``BARBELL_PACK_MODE=0`` take pack mode 0
+        instead: nibble rows [R_host_pad, L/2] (:meth:`_pack_nibble`)."""
+        lib = get_lib()
+        if (lib is None or force_nibble
+                or os.environ.get("BARBELL_PACK_MODE") == "0"):
+            return self._pack_nibble(seq_bytes, plan, R_host_pad, L, lib)
         F = plan.F
         rm = plan.rows_meta
         n_chunks = len(rm)
-        lib = get_lib()  # loaded by the constructor
         nb = np.zeros(R_host_pad, dtype=np.int64)
         chunk_lens = np.fromiter((r.tec for r in rm), dtype=np.int32,
                                  count=n_chunks)
@@ -711,11 +781,57 @@ class TorchDemuxEngine:
                 _EXC_CAP,
             )
         if total_exc > _EXC_CAP:
-            raise NotImplementedError(
-                f"batch carries {total_exc} non-ACGT bytes (> {_EXC_CAP}); "
-                f"the nibble pack mode for such batches is {_NOT_PORTED}"
+            return self._pack_nibble(seq_bytes, plan, R_host_pad, L, lib)
+        return flat, starts.astype(np.int32), exc, 2
+
+    def _pack_nibble(self, seq_bytes, plan, R_host_pad: int, L: int, lib):
+        """Pack mode 0: every host row as [L/2] nibble-packed masks (4 bits
+        a base, so N/IUPAC bytes need no exception list), rows [0, F) by
+        the native ``bbio_encode_pack_rows`` or, without the library, the
+        numpy encoder; the chunk rows of both strands from their encoded
+        masks.  Row starts and exceptions are unused placeholders."""
+        F = plan.F
+        packed = np.zeros((R_host_pad, L // 2), dtype=np.uint8)
+        if F and lib is not None:
+            blob, offs, ls = self._entry_blob(seq_bytes, plan)
+            lib.bbio_encode_pack_rows(
+                blob,
+                offs.ctypes.data_as(ctypes.POINTER(ctypes.c_long)),
+                ls.ctypes.data_as(ctypes.POINTER(ctypes.c_int)),
+                F,
+                L,
+                dna.ENCODE_LUT.tobytes(),
+                packed.ctypes.data_as(ctypes.c_char_p),
             )
-        return flat, exc
+        elif F:
+            W_l, W_r = self.ends_wl, self.ends_wr
+            entries = [seq_bytes[r] for r in plan.simple_reads]
+            for r in plan.ends_reads:
+                s = seq_bytes[r]
+                entries.append(s[:W_l])
+                entries.append(s[len(s) - W_r :])
+            rows = np.zeros((F, L), dtype=np.uint8)
+            for i, sb in enumerate(entries):
+                e = dna.encode(sb)
+                rows[i, : len(e)] = e
+            packed[:F] = comp.pack_rows_np(rows)
+        if plan.rows_meta:
+            rows = np.zeros((len(plan.rows_meta), L), dtype=np.uint8)
+            enc = {}
+            for i, rowm in enumerate(plan.rows_meta):
+                if rowm.read_idx not in enc:  # a read's rows are adjacent
+                    arr = dna.encode(seq_bytes[rowm.read_idx])
+                    enc = {rowm.read_idx: (arr, dna.reverse_complement_masks(arr))}
+                fwd, rc = enc[rowm.read_idx]
+                text = rc if rowm.strand is Strand.Rc else fwd
+                rows[i, : rowm.tec] = text[rowm.offset : rowm.offset + rowm.tec]
+            packed[F : F + len(plan.rows_meta)] = comp.pack_rows_np(rows)
+        return (
+            packed,
+            np.zeros(R_host_pad, dtype=np.int32),
+            np.zeros((1, 2), dtype=np.int32),
+            0,
+        )
 
     def _h_cap(self, B: int, plan, R_total_pad: int) -> int:
         """Initial hit-lane capacity.  Whole-read scan: R_total_pad (>= 1
@@ -745,6 +861,14 @@ class TorchDemuxEngine:
         )
         return gi, gf
 
+    def _group_args(self, gplan: GroupPlan, step: int) -> comp.GroupArgs:
+        """One group's tensors, constants and shapes for the fused call."""
+        gi, gf = self._group_scalars(gplan, step)
+        t = gplan.tensors
+        return comp.GroupArgs(t.flank, t.patw, t.patterns_all, gi, gf,
+                              gplan.m, gplan.k_units, gplan.span, gplan.plen,
+                              gplan.barcode_window, gplan.n_patterns)
+
     def _rec_wire(self, gplan: GroupPlan, L: int, R_total_pad: int):
         """(wire_cols, wbits) of the hit-record layout — must agree with
         demux_call's rec_wire_spec on the same shapes."""
@@ -762,18 +886,16 @@ class TorchDemuxEngine:
             return out_np[: cap * comp.REC_COLS].reshape(cap, comp.REC_COLS)
         return comp.unpack_rec_np(out_np, cap, wbits)
 
-    def _call(self, gplan: GroupPlan, dev_in, L: int, step: int, H_cap: int,
-              S_pad: int) -> np.ndarray:
-        """One fused device call; returns its packed output on the host."""
-        gi, gf = self._group_scalars(gplan, step)
-        t = gplan.tensors
-        out = comp.demux_call(
-            t.flank, t.patw, t.patterns_all, *dev_in,
-            gi=gi, gf=gf, K=self.K, m=gplan.m, k_units=gplan.k_units,
-            Wf=gplan.span, plen=gplan.plen, Wb=gplan.barcode_window,
-            P=gplan.n_patterns, H_cap=H_cap, padding=PADDING, L_rows=L,
-            ends_w=self.ends_wl, ends_wr=self.ends_wr, halo=self.halo,
-            S_pad=S_pad,
+    def _call(self, gplans: Sequence[GroupPlan], batch: _DevBatch,
+              H_cap: int) -> np.ndarray:
+        """One device call running ``gplans`` on ``batch`` (the batch
+        prefix once, then each group) and one fetch: the groups' packed
+        outputs, concatenated in order, on the host."""
+        out = comp.demux_call_fused(
+            [self._group_args(g, batch.step) for g in gplans], batch.parts,
+            K=self.K, H_cap=H_cap, pack_mode=batch.pack_mode, L_rows=batch.L,
+            S_pad=batch.S_pad, ends_w=self.ends_wl, ends_wr=self.ends_wr,
+            halo=self.halo, padding=PADDING,
         )
         return out.cpu().numpy()
 

@@ -87,6 +87,12 @@ class TwoTierDemuxEngine:
             rng.choice(b"ACGT") for _ in range(self._L_deep + 64)
         )
 
+    @property
+    def last_dispatch(self) -> Optional[str]:
+        """The shallow tier's dispatch of the last batch (see
+        :attr:`TorchDemuxEngine.last_dispatch`)."""
+        return self.shallow.last_dispatch
+
     def demux_batch_table(
         self, read_ids: List[str], seqs: List[bytes]
     ) -> HitTable:

@@ -1,15 +1,19 @@
 """The fused per-batch demux call, in PyTorch around the three kernels.
 
-Counterpart of :func:`barbell_tpu.ops.composite.demux_call` on its
-kernel path: 2-bit concatenated rows with device-derived metadata
-(``pack_mode=2``, ``meta_mode='desc'``), whole-read scans (``ends_w =
-0``, with chunk rows) and ends scans, and barcode-rank lanes split by
-strand when ``H_cap % 256 == 0`` or ranked against both strands'
-patterns otherwise.  One call per (group, batch) runs flank scan -> hit
-compaction -> flank traceback -> barcode-window mapping -> barcode rank
--> winner interval mapping and returns the same flat int32 buffer:
-``[H_cap * wire-record lanes] ++ [ceil(R/32) overflow-bitmask words] ++
-[total]``.
+Counterpart of :func:`barbell_tpu.ops.composite.demux_call` and
+:func:`~barbell_tpu.ops.composite.demux_call_fused` on their kernel
+path.  A batch arrives as 2-bit concatenated rows (``pack_mode=2``) with
+device-derived (``meta_mode='desc'``) or uploaded (``'wire'``)
+metadata, or as nibble rows (``pack_mode=0``) with uploaded metadata;
+the scan is the whole read (``ends_w = 0``, with chunk rows) or its
+ends; barcode-rank lanes are split by strand when ``H_cap % 256 == 0``
+and ranked against both strands' patterns otherwise.  The batch prefix
+(metadata, rows, rc twins) runs once per batch; then each group runs
+flank scan -> hit compaction -> flank traceback -> barcode-window
+mapping -> barcode rank -> winner interval mapping and returns the same
+flat int32 buffer: ``[H_cap * wire-record lanes] ++ [ceil(R/32)
+overflow-bitmask words] ++ [total]``; a fused call concatenates the
+groups' buffers.
 
 Row coordinate model: every row holds its text in columns
 ``[tsc, tec]`` (forward rows left-aligned at 0; on-device rc twins
@@ -18,6 +22,8 @@ left-aligned).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -285,14 +291,30 @@ def _derive_meta(rowdesc, chunk_meta, S_pad: int, L: int, ends_w: int,
     return torch.cat([host, twin], dim=0)
 
 
-def _assemble_rows(flat_codes, row_start, exc, hlen, L: int, S_pad: int):
-    """Rows from the concatenated 2-bit codes: each host row's
-    ceil(len/4) code bytes scatter into the padded [R_host, L] layout as
-    single-base masks (1 << code), positions past the row's content
-    zero out, the exception list overrides N/IUPAC/junk bytes (entries
-    are (flat_pos, mask) pairs; out-of-range positions are padding and
-    dropped), and the rc twin block is the flip + complement of host
-    rows [0, S_pad)."""
+def unpack_rows(packed):
+    """[R, L/2] nibble-packed rows -> [R, L] mask bytes (low nibble
+    first)."""
+    lo = packed & 0xF
+    hi = packed >> 4
+    return torch.stack([lo, hi], dim=2).reshape(packed.shape[0], -1)
+
+
+def pack_rows_np(rows):
+    """Host-side nibble packing (numpy).  Masks to 4 bits first: invalid
+    bytes encode to 255, which would otherwise clobber the neighbouring
+    nibble; a 255 mask degrades to 15 (N), the oracle's "matches
+    everything" for unknown bytes."""
+    r = rows & 0xF
+    return (r[:, 0::2] | (r[:, 1::2] << 4)).astype(rows.dtype)
+
+
+def _cat_rows(flat_codes, row_start, exc, hlen, L: int):
+    """Host rows [R0, L] from the concatenated 2-bit codes: each row's
+    ceil(len/4) code bytes scatter into the padded layout as single-base
+    masks (1 << code), positions past the row's content zero out, and
+    the exception list overrides N/IUPAC/junk bytes (entries are
+    (flat_pos, mask) pairs; out-of-range positions are padding and
+    dropped)."""
     dev = flat_codes.device
     R0 = row_start.shape[0]
     Q = L // 4
@@ -309,9 +331,57 @@ def _assemble_rows(flat_codes, row_start, exc, hlen, L: int, S_pad: int):
     pos = exc[:, 0].long()
     pos = torch.where((pos >= 0) & (pos < R0 * L), pos, R0 * L)
     flat[pos] = exc[:, 1].to(torch.uint8)
-    host_rows = flat[: R0 * L].reshape(R0, L)
-    rc_twin = _complement_masks(host_rows[:S_pad].flip(1))
-    return torch.cat([host_rows, rc_twin], dim=0)
+    return flat[: R0 * L].reshape(R0, L)
+
+
+def batch_rows(parts, *, pack_mode: int, L_rows: int, S_pad: int,
+               ends_w: int, ends_wr: int, halo: int, padding: int):
+    """The group-independent prefix of a batch's device call: (rows
+    [R_host + S_pad, L] u8 masks, metadata [R_host + S_pad, META_COLS]).
+
+    ``parts`` names the uploaded batch arrays in one of two layouts:
+
+    * descriptor metadata (``meta_mode='desc'``, pack mode 2 only):
+      ``host_packed`` (concatenated 2-bit codes), ``rowdesc``,
+      ``chunk_meta``, ``exc``; the metadata and the row starts are
+      derived here and the rc twin block is the flip + complement of
+      host rows ``[0, S_pad)``;
+    * uploaded ("wire") metadata: ``host_packed``, ``meta`` (the
+      :func:`pack_meta_np` table of every row, twins included),
+      ``simple_idx`` (the host row of each twin), ``exc`` and
+      ``row_start`` (the rows' byte starts), with ``host_packed`` either
+      the concatenated 2-bit codes (``pack_mode=2``) or nibble rows
+      ``[R_host, L/2]`` (``pack_mode=0``, which ignores ``exc`` and
+      ``row_start``)."""
+    host_packed, exc = parts["host_packed"], parts["exc"]
+    if pack_mode not in (0, 2):
+        raise ValueError(f"pack mode {pack_mode} is not ported (modes 0 and 2 are)")
+    if "rowdesc" in parts:
+        if pack_mode != 2:
+            raise ValueError("meta_mode='desc' requires pack_mode 2")
+        rowdesc = parts["rowdesc"]
+        meta = _derive_meta(rowdesc, parts["chunk_meta"], S_pad, L_rows,
+                            ends_w, ends_wr, halo, padding)
+        hlen = meta[: rowdesc.shape[0], M_TEC]
+        nb = (hlen + 3) >> 2
+        stride = (nb + (CAT_ALIGN - 1)) // CAT_ALIGN * CAT_ALIGN
+        row_start = torch.cat([
+            torch.zeros(1, dtype=torch.int32, device=host_packed.device),
+            torch.cumsum(stride[:-1], 0).to(torch.int32),
+        ])
+        host_rows = _cat_rows(host_packed, row_start, exc, hlen, L_rows)
+        twin_src = host_rows[:S_pad]
+    else:
+        meta = _unpack_meta(parts["meta"])
+        if pack_mode == 2:
+            row_start = parts["row_start"]
+            host_rows = _cat_rows(host_packed, row_start, exc,
+                                  meta[: row_start.shape[0], M_TEC], L_rows)
+        else:
+            host_rows = unpack_rows(host_packed)
+        twin_src = host_rows[parts["simple_idx"].long()]
+    rows = torch.cat([host_rows, _complement_masks(twin_src.flip(1))], dim=0)
+    return rows, meta
 
 
 def _scan_keys(flank, patw, rows, start_col, end_col, lo, hi, emit_lo,
@@ -380,39 +450,101 @@ def _scan_keys(flank, patw, rows, start_col, end_col, lo, hi, emit_lo,
     return key_top, count
 
 
+class GroupArgs(NamedTuple):
+    """One group's tensors and constants for :func:`demux_call_fused`."""
+
+    flank: torch.Tensor  # [m] u8 flank masks
+    patw: torch.Tensor  # [4, W_words] int32 view of the Myers pattern words
+    patterns_all: torch.Tensor  # [2P, plen] u8: fwd pattern stack then rc stack
+    gi: tuple  # (alpha, mask_a, mask_b, k1, iv_a, iv_b, step) ints
+    gf: tuple  # (perfect, min_score, min_score_diff) floats
+    m: int
+    k_units: int
+    Wf: int  # flank trace window span
+    plen: int  # barcode pattern length
+    Wb: int  # barcode window width
+    P: int  # patterns per strand
+
+
 def demux_call(
-    flank,  # [m] u8 flank masks
-    patw,  # [4, W_words] int32 view of the Myers pattern words
-    patterns_all,  # [2P, plen] u8: fwd pattern stack then rc stack
+    flank,
+    patw,
+    patterns_all,
     host_packed,  # [T] u8 concatenated 2-bit row codes
     rowdesc,  # [R_host] int32 row descriptors
     chunk_meta,  # [C, META_WIRE_COLS] int32 packed chunk-row metadata
     exc,  # [E, 2] int32 (flat_pos, mask) exceptions
     *,
-    gi: tuple,  # (alpha, mask_a, mask_b, k1, iv_a, iv_b, step) ints
-    gf: tuple,  # (perfect, min_score, min_score_diff) floats
+    gi: tuple,
+    gf: tuple,
     K: int,
     m: int,
     k_units: int,
-    Wf: int,  # flank trace window span
-    plen: int,  # barcode pattern length
-    Wb: int,  # barcode window width
-    P: int,  # patterns per strand
-    H_cap: int,  # hit-lane capacity (strand halves of H_cap / 2)
-    padding: int,  # barcode window padding (PADDING)
+    Wf: int,
+    plen: int,
+    Wb: int,
+    P: int,
+    H_cap: int,
+    padding: int,
+    L_rows: int,
+    ends_w: int,
+    ends_wr: int,
+    halo: int,
+    S_pad: int,
+):
+    """The full demux pipeline for one (group, batch) on descriptor
+    metadata: :func:`demux_call_fused` with one group (see
+    :class:`GroupArgs` and :func:`demux_call_fused` for the arguments,
+    the module doc for the output layout)."""
+    return demux_call_fused(
+        [GroupArgs(flank, patw, patterns_all, gi, gf, m, k_units, Wf, plen,
+                   Wb, P)],
+        dict(host_packed=host_packed, rowdesc=rowdesc, chunk_meta=chunk_meta,
+             exc=exc),
+        K=K, H_cap=H_cap, pack_mode=2, L_rows=L_rows, S_pad=S_pad,
+        ends_w=ends_w, ends_wr=ends_wr, halo=halo, padding=padding,
+    )
+
+
+def demux_call_fused(
+    groups,  # [GroupArgs] in plan order
+    parts,  # the batch's uploaded arrays, named as batch_rows reads them
+    *,
+    K: int,
+    H_cap: int,  # hit-lane capacity of every group (strand halves of H_cap / 2)
+    pack_mode: int,  # 2: concatenated 2-bit codes; 0: nibble rows
     L_rows: int,  # row width
+    S_pad: int,  # twin-block rows
     ends_w: int,  # ends mode: PREFIX window width (0 = whole-read scan)
     ends_wr: int,  # SUFFIX window width (0 = symmetric)
     halo: int,  # flank halo
-    S_pad: int,  # twin-block rows
+    padding: int,  # barcode window padding (PADDING)
 ):
-    """The full demux pipeline for one (group, batch); see the module
-    doc for the output layout.  Hits beyond H_cap (or, with strand-split
-    lanes, beyond a strand half of it) are dropped — the caller checks
-    ``total <= H_cap`` and retries with a larger capacity."""
+    """Every group's demux for one batch: the batch prefix
+    (:func:`batch_rows`: metadata and rows, which depend on no group)
+    once, then each group's body.  Returns the groups' flat buffers (see
+    the module doc) concatenated in group order; each group's length
+    follows its own record layout (:func:`rec_wire_spec`)."""
+    rows, meta = batch_rows(parts, pack_mode=pack_mode, L_rows=L_rows,
+                            S_pad=S_pad, ends_w=ends_w, ends_wr=ends_wr,
+                            halo=halo, padding=padding)
+    outs = [_group_body(rows, meta, g, K=K, H_cap=H_cap, padding=padding,
+                        ends_w=ends_w, ends_wr=ends_wr) for g in groups]
+    return torch.cat(outs) if len(outs) > 1 else outs[0]
+
+
+def _group_body(rows, meta, group: GroupArgs, *, K, H_cap, padding, ends_w,
+                ends_wr):
+    """One group's demux on a batch's rows and metadata: flank scan ->
+    hit compaction -> flank trace -> barcode-window mapping -> barcode
+    rank -> selection -> winner interval -> record packing.  Hits beyond
+    H_cap (or, with strand-split lanes, beyond a strand half of it) are
+    dropped — the caller checks ``total <= H_cap`` and retries with a
+    larger capacity."""
+    flank, patw, patterns_all, gi, gf, m, k_units, Wf, plen, Wb, P = group
     if Wb > 255:
         raise ValueError(f"the rank key packs positions in 8 bits (Wb={Wb})")
-    dev = host_packed.device
+    dev = rows.device
     i32 = torch.int32
     alpha_scaled, mask_a, mask_b, k1_scaled, iv_a, iv_b, step = (
         int(v) for v in gi
@@ -420,16 +552,6 @@ def demux_call(
     # f32-exact floats: comparisons against them run in f32
     perfect, min_score, min_score_diff = gf
 
-    meta = _derive_meta(rowdesc, chunk_meta, S_pad, L_rows, ends_w, ends_wr,
-                        halo, padding)
-    R_host = rowdesc.shape[0]
-    hlen = meta[:R_host, M_TEC]
-    nb = (hlen + 3) >> 2
-    stride = (nb + (CAT_ALIGN - 1)) // CAT_ALIGN * CAT_ALIGN
-    row_start = torch.cat(
-        [torch.zeros(1, dtype=i32, device=dev), torch.cumsum(stride[:-1], 0).to(i32)]
-    )
-    rows = _assemble_rows(host_packed, row_start, exc, hlen, L_rows, S_pad)
     R, L = rows.shape
     L_key = L + 2
     if k_units * UNIT * L_key + L >= 2**30:

@@ -1,17 +1,18 @@
 """One-shot kit pipeline on the port: annotate -> inspect -> filter ->
-trim, fused per batch.
+trim.
 
-Counterpart of :func:`barbell_tpu.stages.kit.demux_using_kit` and its
-streaming runner, with the port's engines: writes ``annotation.tsv``,
-``pattern_per_read.tsv``, ``filtered.tsv`` and per-label trimmed
-FASTQs, byte-identical to the JAX package's runner on the same input
-(enforced by tests).  The kit's preset patterns fix a two-tier ends
-plan (:func:`ends_plan_for_patterns`); ``full_scan`` (``--full-scan``),
-or a preset the plan cannot bound, runs the whole-read scan instead.
-
-Not ported (raises): ``--use-extended`` (multi-group fused dispatch)
-and the staged four-pass runner (``stream=False`` or ``verbose``, which
-writes per-stage logs).
+Counterpart of :func:`barbell_tpu.stages.kit.demux_using_kit` with the
+port's engines: writes ``annotation.tsv``, ``pattern_per_read.tsv``,
+``filtered.tsv`` and per-label trimmed FASTQs, byte-identical to the
+JAX package's runner on the same input (enforced by tests).  The
+streaming runner fuses the four stages per batch; the staged runner
+(``stream=False`` or ``verbose``, which writes per-stage logs) runs
+them one after another over the files, with the same output files.
+The kit's preset patterns fix a two-tier ends plan
+(:func:`ends_plan_for_patterns`); ``full_scan`` (``--full-scan``),
+``use_extended`` (``--use-extended``: the fusion/artefact template as a
+second barcode group, searched across whole reads) or a preset the
+plan cannot bound runs the whole-read scan instead.
 """
 
 from __future__ import annotations
@@ -24,16 +25,17 @@ from .. import PADDING
 from ..kits.database import get_kit_info
 from ..kits.presets import preset_patterns
 from ..models.barcodes import BarcodeGroup
-from ..models.pipeline import _NOT_PORTED
 from ..models.twotier import EndsPlan
 from ..ops import oracle
 from ..ops.edit_model import get_edit_cut_off
-from .annotate import AnnotateConfig
+from .annotate import AnnotateConfig, annotate_with_kit
+from .filter import filter_annotations
+from .inspect import inspect
 from .pattern import pattern_from_str
-from .trim import LabelConfig
+from .trim import LabelConfig, trim_matches
 
 __all__ = ["KitRunConfig", "demux_using_kit", "ends_plan_for_patterns",
-           "kit_groups"]
+           "kit_groups", "kit_plan"]
 
 
 @dataclass
@@ -173,10 +175,12 @@ def ends_plan_for_patterns(patterns, groups):
     return EndsPlan(shallow=(W1, W1))
 
 
-def kit_groups(kit_name: str, max_flank_errors: Optional[int] = None):
-    """The kit's barcode groups with their flank thresholds set (the
-    edit cut-off of the flank's length unless ``max_flank_errors``)."""
-    groups = BarcodeGroup.from_kit(kit_name, False)
+def kit_groups(kit_name: str, max_flank_errors: Optional[int] = None,
+               use_extended: bool = False):
+    """The kit's barcode groups (``use_extended``: with the fusion/artefact
+    templates) with their flank thresholds set (the edit cut-off of the
+    flank's length unless ``max_flank_errors``)."""
+    groups = BarcodeGroup.from_kit(kit_name, use_extended)
     for g in groups:
         g.set_flank_threshold(
             max_flank_errors
@@ -186,17 +190,22 @@ def kit_groups(kit_name: str, max_flank_errors: Optional[int] = None):
     return groups
 
 
+def kit_plan(kit_name: str, maximize: bool = False,
+             max_flank_errors: Optional[int] = None):
+    """The two-tier ends plan the kit's preset patterns fix, or ``None``
+    when they do not bound every element (whole-read scan)."""
+    patterns = [
+        pattern_from_str(s)
+        for s in preset_patterns(get_kit_info(kit_name).pattern_class, maximize)
+    ]
+    return ends_plan_for_patterns(patterns,
+                                  kit_groups(kit_name, max_flank_errors))
+
+
 def demux_using_kit(fastq_files: Sequence[str], config: KitRunConfig,
                     device="cuda") -> None:
-    if config.use_extended:
-        raise NotImplementedError(
-            f"kit --use-extended (multi-group fused dispatch) is {_NOT_PORTED}"
-        )
-    if not config.stream or config.verbose:
-        raise NotImplementedError(
-            f"the staged kit runner (--no-stream / --verbose) is {_NOT_PORTED}"
-        )
-    os.makedirs(config.output_folder, exist_ok=True)
+    out = config.output_folder
+    os.makedirs(out, exist_ok=True)
 
     kit_info = get_kit_info(config.kit_name)
 
@@ -218,14 +227,10 @@ def demux_using_kit(fastq_files: Sequence[str], config: KitRunConfig,
         batch_size=config.batch_size,
     )
 
-    if not config.full_scan:
-        wgroups = kit_groups(config.kit_name, config.max_flank_errors)
-        wpats = [
-            pattern_from_str(s)
-            for s in preset_patterns(kit_info.pattern_class, config.maximize)
-        ]
+    if not config.full_scan and not config.use_extended:
         # None (a preset the plan cannot bound): whole-read scan
-        plan = ends_plan_for_patterns(wpats, wgroups)
+        plan = kit_plan(config.kit_name, config.maximize,
+                        config.max_flank_errors)
         annotate_config.ends_window = plan
         if plan is not None:
             msg = (
@@ -241,9 +246,63 @@ def demux_using_kit(fastq_files: Sequence[str], config: KitRunConfig,
                 msg + " (preset windows are positional; --full-scan "
                 "restores whole-read scanning)"
             )
-    _demux_using_kit_streaming(
-        fastq_files, config, kit_info, annotate_config, device
+    if config.stream and not config.verbose:
+        _demux_using_kit_streaming(
+            fastq_files, config, kit_info, annotate_config, device
+        )
+        return
+
+    print("\nAnnotating reads...")
+    annotation_tsv = os.path.join(out, "annotation.tsv")
+    annotate_with_kit(fastq_files, annotation_tsv, config.kit_name,
+                      annotate_config, device)
+
+    print("\nTop 10 most common patterns")
+    inspect(
+        annotation_tsv,
+        top_n=10,
+        read_pattern_out=os.path.join(out, "pattern_per_read.tsv"),
+        bucket_size=250,
     )
+    print(
+        f"Want to see more patterns? Run: "
+        f"`python -m barbell_tpu_torch inspect -i {annotation_tsv} -n 100`"
+    )
+
+    print("\nFiltering reads...")
+    patterns = [
+        pattern_from_str(p)
+        for p in preset_patterns(kit_info.pattern_class, config.maximize)
+    ]
+    filtered_tsv = os.path.join(out, "filtered.tsv")
+    filter_annotations(
+        annotation_tsv, filtered_tsv, patterns, None, verbose=config.verbose
+    )
+
+    print("\nTrimming reads...")
+    label_config = LabelConfig(
+        include_label=True,
+        include_orientation=False,
+        include_flank=False,
+        sort_labels=False,
+        only_side="left",
+    )
+    trim_matches(
+        filtered_tsv,
+        fastq_files,
+        out,
+        label_config=label_config,
+        failed_out=config.failed_out,
+        write_full_header=True,
+        skip_trim=False,
+        flip=False,
+        verbose=config.verbose,
+        use_gzip=config.gzip,
+        # threaded writers pay off only when gzip is the bottleneck
+        threads=config.threads if config.gzip else 1,
+    )
+
+    print("\nDone!")
 
 
 def _demux_using_kit_streaming(

@@ -26,15 +26,36 @@ Phases (any failure exits non-zero and prints no result line):
    and at every segment count S);
 3. the ends path — 16384 simulated SQK-RBK114-96 reads through the
    port's ``demux_using_kit`` (two-tier ends scan) in 2048-read batches;
-4. the whole-read paths — 16448 such reads, every 16th with a 9-20 kb
+4. the extended path — the same reads through ``kit --use-extended``
+   (two barcode groups, whole-read scan): every batch must be one fused
+   device call of both groups (``last_dispatch == "single-fused"``), each
+   on-path kernel launched once per group per call;
+5. two-group checks on the card — the fused dispatch against the
+   per-group dispatch on the extended path's first batch, on reads with
+   a mid-read fusion construct and on EXP-PBC096 reads (Ftag + rc Rtag,
+   under that kit's ends plan), and against the scalar Demuxer on the
+   first 64 reads of each, with each dispatch's wall time per batch;
+   nibble rows (a batch with over 4096 N bytes takes them by itself;
+   ``BARBELL_PACK_MODE=0``) and uploaded metadata
+   (``BARBELL_META_MODE=wire``) against the default path; ``kit
+   --no-stream`` against the streaming runner; ``sim`` + ``compare
+   --verify`` and its per-group outcomes, each equal to the JAX
+   package's on the same simulated set;
+6. the whole-read paths — 16448 such reads, every 16th with a 9-20 kb
    body so that reads outrun the 8192-wide rows and become chunk rows,
    through the port's ``annotate --kit`` (whole-read scan) and ``kit
    --full-scan``.  16448 = 8 x 2048 + 64: the last batch's hit capacity
    is below 256, so it ranks with the non-split rank form;
-5. kernels at the whole-read paths' shapes, recorded from their batches,
-   and the Myers kernel on the arguments of one full batch of the ends
-   path and of ``annotate``, captured as the path passed them
-   ("captured" entries, with every segment count S timed there too).
+7. kernels at the whole-read paths' and the extended path's shapes,
+   recorded from their batches (the extended ones with the fusion
+   template's flank and patterns), and the Myers kernel on the
+   arguments of one full batch of the ends path, the extended path and
+   ``annotate``, captured as the path passed them ("captured" entries,
+   with every segment count S timed there too).
+
+The simulated reads and the scalar Demuxer's rows come from up to 8
+spawned worker processes; the ends and whole-read sets are simulated
+side by side.
 
 Every path runs with each kernel's launch count set to 0 just before it
 and read just after; every kernel of the path must have launched.
@@ -51,7 +72,8 @@ capture fails, torch.profiler's device time of ``reps`` calls, and the
 phase fails if neither gives a device time.  ``timing`` names the
 method; ``events_ms`` is the earlier reading (``reps`` back-to-back
 wrapper calls between CUDA events, host enqueue included) and
-``plain_ms`` one call of the plain version between CUDA events.
+``plain_ms`` the one call of the plain version that gives the
+reference output, between CUDA events.
 ``--kernels-only`` adds ``sweep`` lines: every (rows, group) instance
 of the rank and window kernels and every segment count S of the Myers
 kernel at each path shape.
@@ -70,12 +92,14 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import multiprocessing
 import os
 import re
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -87,8 +111,20 @@ N_WHOLE = 16448  # 8 x 2048 + 64
 LONG_EVERY = 16
 BATCH = 2048
 ORACLE_READS = 128
+N_FUSED = 256  # reads of each two-construct input of the fused check
+N_SCALAR = 64  # reads of each fused-check input held to the scalar Demuxer
+N_NBATCH = 64  # reads of the N-byte batch (every fourth body base an N)
+N_COMPARE = 200  # reads per simulated group of the compare check
+# compare's (assigned, correct) per group on ``sim -n 200 -r 0``, which is
+# what barbell_tpu's compare on its own engine gives on the same set: the
+# kit's two-tier ends scan assigns GroupV's reads by their end constructs
+# and does not see the construct mid-read (docs/SEMANTICS.md)
+COMPARE_EXPECTED = {"GroupI": (0, 0), "GroupII": (200, 200),
+                    "GroupIII": (200, 200), "GroupIV": (0, 0),
+                    "GroupV": (185, 0), "GroupVI": (0, 0)}
 FLOOR = 0.99
 SEED = 0
+WORKERS = min(8, os.cpu_count() or 1)  # host worker processes
 
 # Bounds: the H100 SXM's 3.35 TB/s of HBM, 67 TFLOP/s of f32 outside the
 # tensor cores, and half that for int32 (64 INT32 lanes per SM beside its
@@ -110,6 +146,14 @@ RANK_F32_PER_CELL = 8  # the Lodhi update: 5 multiplies, 3 adds
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+@contextlib.contextmanager
+def timed(phase: str):
+    """Logs the phase's wall time when it ends."""
+    t0 = time.perf_counter()
+    yield
+    log(f"phase {phase}: {time.perf_counter() - t0:.1f}s")
 
 
 # ---------------------------------------------------------------- probe
@@ -190,6 +234,15 @@ def _flagship_engine():
                             device="cuda")
 
 
+def _extended_engine():
+    """An engine of ``kit --use-extended``'s two groups (the RBK114
+    template, then its fusion/artefact template)."""
+    from barbell_tpu_torch.models.pipeline import TorchDemuxEngine
+    from barbell_tpu_torch.stages.kit import kit_groups
+
+    return TorchDemuxEngine(kit_groups(KIT, use_extended=True), device="cuda")
+
+
 def _time_events(fn, reps: int) -> float:
     """Mean ms per call over ``reps`` back-to-back calls between two CUDA
     events (host enqueue included once the calls outrun the device)."""
@@ -201,6 +254,17 @@ def _time_events(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _time_once(fn):
+    """(result, ms) of one call of ``fn`` between two CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def _time_profiler(fn, reps: int) -> float:
@@ -333,12 +397,14 @@ class KernelCheck:
     """Each kernel against its plain version on the card, at one path's
     shapes; ``entries`` collects one JSON entry per kernel and mode."""
 
-    def __init__(self, engine, path: str, seed: int, sweep: bool = False):
+    def __init__(self, engine, path: str, seed: int, sweep: bool = False,
+                 gp=None):
         self.sweep = sweep
         self.rng = np.random.default_rng(seed)
         self.dev = torch.device("cuda")
         self.alpha = engine.alpha_scaled
-        (self.gp,) = engine.plans
+        # the group whose flank and patterns the kernels run with
+        (self.gp,) = engine.plans if gp is None else (gp,)
         self.path = path
         self.entries = []
 
@@ -350,12 +416,10 @@ class KernelCheck:
         tup = lambda x: x if isinstance(x, tuple) else (x,)  # noqa: E731
         got = tup(run_kernel())
         torch.cuda.synchronize()
-        want = tup(run_plain())
-        torch.cuda.synchronize()
-        err = _diff(got, want)
+        want, plain_ms = _time_once(run_plain)
+        err = _diff(got, tup(want))
         ms, method = _time(run_kernel, reps)
         events_ms = _time_events(run_kernel, reps)
-        plain_ms = _time_events(run_plain, 1)
         ptx = _ptxas(*ptxas_keys)
         bound_ms, bound_by = bound
         log(f"kernel {name} [{self.path}] {shape}: equal to plain (max abs "
@@ -842,26 +906,33 @@ def check_myers_edges(rng, t) -> int:
     return n
 
 
-# The whole-read paths' batch shapes as the full run records them (a
-# full 2048-read batch and the last 64-read one), for --kernels-only.
+# The batch shapes as the full run records them, for --kernels-only:
+# the whole-read paths' (a full 2048-read batch and the last 64-read
+# one) and the extended path's (every batch full).
 WHOLE_READ_BATCHES = ({"L": 4096, "R_total": 6144, "H_cap": 6144},
                       {"L": 4096, "R_total": 192, "H_cap": 192})
+EXTENDED_BATCHES = ({"L": 4096, "R_total": 4096, "H_cap": 4096},)
 
 
-def check_whole_read_kernels(engine, batches, sweep: bool = False) -> list:
-    """Every kernel at the whole-read paths' recorded shapes: the largest
-    batch's rows and hit capacity, and the non-split batch's; ``sweep``
-    also times every instance of the rank and window kernels and every
-    segment count of the Myers kernel there."""
+def check_batch_kernels(engine, batches, path: str, seed: int,
+                        sweep: bool = False, gp=None) -> list:
+    """Every kernel at a whole-read scan's recorded batch shapes (the
+    whole-read paths' or the extended path's): the largest batch's rows
+    and hit capacity, and the largest split and non-split rank
+    capacities among the batches; ``gp`` is the group the kernels run
+    with (the engine's one group by default); ``sweep`` also times every
+    instance of the rank and window kernels and every segment count of
+    the Myers kernel there."""
     big = max(batches, key=lambda b: b["R_total"] * b["L"])
-    ns = [b for b in batches if b["H_cap"] % 256]
-    kc = KernelCheck(engine, "whole-read", SEED + 2, sweep)
+    kc = KernelCheck(engine, path, seed, sweep, gp)
     kc.myers(big["R_total"], big["L"], 2, valleys=False)
     kc.window_valleys(2 * big["R_total"])
     kc.window_trace(big["H_cap"])
     kc.window_interval(big["H_cap"])
-    kc.rank(max(b["H_cap"] for b in batches if b["H_cap"] % 256 == 0), split=True)
-    kc.rank(max(b["H_cap"] for b in ns), split=False)
+    for split in (True, False):
+        caps = [b["H_cap"] for b in batches if (b["H_cap"] % 256 == 0) == split]
+        if caps:
+            kc.rank(max(caps), split=split)
     torch.cuda.synchronize()
     return kc.entries
 
@@ -870,8 +941,9 @@ def check_whole_read_kernels(engine, batches, sweep: bool = False) -> list:
 
 
 class BatchRecorder:
-    """Records each device call's row width, row count and hit capacity
-    (the engine's ``_call``) while installed."""
+    """Records each device call's row width, row count, hit capacity,
+    group count and the engine's dispatch (the engine's ``_call``, which
+    runs one group or, fused, every group of a batch) while installed."""
 
     def __init__(self):
         from barbell_tpu_torch.models.pipeline import TorchDemuxEngine
@@ -883,10 +955,11 @@ class BatchRecorder:
     def __enter__(self):
         orig, batches = self.orig, self.batches
 
-        def call(eng, gplan, dev_in, L, step, H_cap, S_pad):
-            batches.append({"L": L, "R_total": dev_in[1].shape[0] + S_pad,
-                            "H_cap": H_cap})
-            return orig(eng, gplan, dev_in, L, step, H_cap, S_pad)
+        def call(eng, gplans, batch, H_cap):
+            batches.append({"L": batch.L, "R_total": batch.R_total,
+                            "H_cap": H_cap, "groups": len(gplans),
+                            "dispatch": eng.last_dispatch})
+            return orig(eng, gplans, batch, H_cap)
 
         self.cls._call = call
         return self
@@ -927,13 +1000,23 @@ class MyersCapture:
         self.mod.myers_topk = self.orig
 
 
-def _kit(fq, out, backend, full_scan=False):
+def _simulate(n, long_every, path):
+    """``n`` simulated reads (``make_reads_rbk``), also written to the
+    FASTQ ``path`` (runs in a worker process too)."""
+    from barbell_tpu_torch.sim import make_reads_rbk, write_fastq
+
+    reads = make_reads_rbk(n, SEED, long_every=long_every)
+    write_fastq(path, reads)
+    return reads
+
+
+def _kit(fq, out, backend, full_scan=False, **config):
     from barbell_tpu_torch.stages.kit import KitRunConfig, demux_using_kit
 
     demux_using_kit(
         [fq],
         KitRunConfig(kit_name=KIT, output_folder=out, batch_size=BATCH,
-                     backend=backend, full_scan=full_scan),
+                     backend=backend, full_scan=full_scan, **config),
         device="cuda",
     )
 
@@ -977,7 +1060,7 @@ def _quiet(d, name):
         yield
 
 
-def run_path(name, run, fq, d, reads, wrappers, required, smi):
+def run_path(name, fq, d, reads, wrappers, required, smi):
     """Drive one path with every launch count at 0 just before it; check
     its launches and accuracy; return (launches, batches, the arguments
     of its largest Myers call)."""
@@ -986,14 +1069,15 @@ def run_path(name, run, fq, d, reads, wrappers, required, smi):
     torch.cuda.synchronize()
     with BatchRecorder() as rec, MyersCapture() as cap, _quiet(d, name):
         t0 = time.perf_counter()
-        run(fq, os.path.join(d, name), "torch")
+        PATHS[name](fq, os.path.join(d, name), "torch")
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
     launches = {w.__name__: w.launches for w in wrappers}
     log(f"[{name}] launches: {launches}")
     for b in rec.batches:
-        log(f"[{name}] batch: L {b['L']}, R_total {b['R_total']}, H_cap "
-            f"{b['H_cap']} ({'split' if b['H_cap'] % 256 == 0 else 'non-split'} rank)")
+        log(f"[{name}] call: L {b['L']}, R_total {b['R_total']}, H_cap "
+            f"{b['H_cap']} ({'split' if b['H_cap'] % 256 == 0 else 'non-split'} "
+            f"rank), {b['groups']} group(s), {b['dispatch']}")
     for kname in required:
         if launches[kname] <= 0:
             raise AssertionError(f"kernel {kname} never launched in path {name}")
@@ -1008,19 +1092,38 @@ def run_path(name, run, fq, d, reads, wrappers, required, smi):
     return launches, rec.batches, cap.args
 
 
-def oracle_parity(name, run, reads, d):
-    """The path's files on the first ORACLE_READS reads equal the scalar
-    oracle backend's byte for byte."""
-    from barbell_tpu_torch.sim import write_fastq
+def _kit_extended(fq, out, backend):
+    _kit(fq, out, backend, use_extended=True)
 
-    sub = os.path.join(d, f"{name}_sub.fastq")
-    write_fastq(sub, reads[:ORACLE_READS])
+
+def _kit_full(fq, out, backend):
+    _kit(fq, out, backend, full_scan=True)
+
+
+#: each path's run(fq, out, backend), by the path's name
+PATHS = {"kit": _kit, "kit_extended": _kit_extended, "annotate": _annotate,
+         "kit_full_scan": _kit_full}
+
+
+def _oracle_run(name, d):
+    """Path ``name`` on the scalar oracle backend over its first
+    ORACLE_READS reads (``{name}_sub.fastq``; in a worker process);
+    returns its seconds."""
+    with _quiet(d, f"{name}_sub_oracle"):
+        t0 = time.perf_counter()
+        PATHS[name](os.path.join(d, f"{name}_sub.fastq"),
+                    os.path.join(d, f"{name}_sub_oracle"), "oracle")
+        return time.perf_counter() - t0
+
+
+def oracle_parity(name, reads, d, oracle_job):
+    """The path's files on the first ORACLE_READS reads equal the scalar
+    oracle backend's byte for byte (``oracle_job``: the oracle's run on
+    them, :func:`_oracle_run`)."""
     a_dir, b_dir = os.path.join(d, f"{name}_sub_torch"), os.path.join(d, f"{name}_sub_oracle")
     with _quiet(d, f"{name}_sub"):
-        run(sub, a_dir, "torch")
-        t0 = time.perf_counter()
-        run(sub, b_dir, "oracle")
-        t_oracle = time.perf_counter() - t0
+        PATHS[name](os.path.join(d, f"{name}_sub.fastq"), a_dir, "torch")
+    t_oracle = oracle_job.result()
     a, b = _files(a_dir), _files(b_dir)
     if sorted(a) != sorted(b):
         raise AssertionError(f"{name}: stage files differ: {sorted(a)} vs {sorted(b)}")
@@ -1030,7 +1133,329 @@ def oracle_parity(name, run, reads, d):
     n_long = sum(len(s) > 8192 for _r, s, _l in reads[:ORACLE_READS])
     log(f"[{name}] oracle parity: {len(a)} files byte-identical on "
         f"{ORACLE_READS} reads ({n_long} longer than 8192 bases; oracle "
-        f"{t_oracle:.1f}s)")
+        f"{t_oracle:.1f}s in a worker process)")
+
+
+def check_extended_launches(batches, launches):
+    """The extended path's calls: every batch is one fused call of both
+    groups (``single-fused``), any other call is one group's overflow
+    retry, and each on-path kernel launched once per group per call."""
+    fused = [b for b in batches if b["groups"] == 2]
+    if not fused or any(b["dispatch"] != "single-fused" for b in fused):
+        raise AssertionError("kit_extended: a batch was not one fused call")
+    if any(b["groups"] != 1 for b in batches if b not in fused):
+        raise AssertionError("kit_extended: a retry call ran more than one group")
+    per_call = sum(b["groups"] for b in batches)
+    split = sum(b["groups"] for b in batches if b["H_cap"] % 256 == 0)
+    want = {"myers_topk": per_call, "window_valleys": per_call,
+            "window_trace": per_call, "window_interval": per_call,
+            "rank_pass1_split": split, "rank_pass1": per_call - split}
+    got = {k: launches[k] for k in want}
+    if got != want:
+        raise AssertionError(f"kit_extended launches {got}, want {want}")
+    log(f"[kit_extended] {len(fused)} batches, each one fused call of 2 "
+        f"groups, {len(batches) - len(fused)} retry call(s): every on-path "
+        f"kernel launched 2 x per batch plus retries ({want})")
+
+
+class CallSpy:
+    """Records the pack mode and metadata layout of every fused device
+    call (``composite.demux_call_fused``) while installed."""
+
+    def __init__(self):
+        from barbell_tpu_torch.ops import composite
+
+        self.mod = composite
+        self.orig = composite.demux_call_fused
+        self.calls = []
+
+    def __enter__(self):
+        orig, calls = self.orig, self.calls
+
+        def call(groups, parts, **kw):
+            calls.append((kw["pack_mode"], "desc" if "rowdesc" in parts else "wire"))
+            return orig(groups, parts, **kw)
+
+        self.mod.demux_call_fused = call
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.demux_call_fused = self.orig
+
+
+def _construct(g, i):
+    """Group ``g``'s flank around its ``i``-th barcode."""
+    a, b = g.bar_region
+    p0 = g.pad_region[0]
+    return g.flank[:a] + g.barcodes[i].seq[a - p0 : b - p0 + 1] + g.flank[b + 1 :]
+
+
+def _two_construct_reads(groups, n, seed, fusion):
+    """``fusion``: a standard construct at the start and a fusion
+    construct mid-read (tests/test_e2e_extra.py's reads); otherwise an
+    Ftag construct at the start and an rc Rtag construct at the end,
+    every other read reverse complemented."""
+    import random
+
+    from barbell_tpu_torch.sim.simulate import mutate_sequence, random_sequence
+    from barbell_tpu_torch.utils import dna
+
+    rng = random.Random(seed)
+    g1, g2 = groups
+    ids, seqs = [], []
+    for i in range(n):
+        bc = rng.randrange(len(g1.barcodes))
+        body1 = bytes(random_sequence(rng, rng.randrange(200, 500)))
+        body2 = bytes(random_sequence(rng, rng.randrange(200, 500)))
+        c2 = _construct(g2, (bc + 7) % len(g2.barcodes))
+        if fusion:
+            seq = _construct(g1, bc) + body1 + c2 + body2
+        else:
+            seq = _construct(g1, bc) + body1 + body2 + dna.reverse_complement_bytes(c2)
+            if i % 2:
+                seq = dna.reverse_complement_bytes(seq)
+        ids.append(f"{'x' if fusion else 'p'}{i}")
+        seqs.append(mutate_sequence(rng, seq, 0, 4))
+    return ids, seqs
+
+
+def _tables_equal(a, b, what):
+    from barbell_tpu_torch.models import hittable
+
+    if a.read_ids != b.read_ids or not np.array_equal(a.read_lens, b.read_lens):
+        raise AssertionError(f"{what}: read ids or lengths differ")
+    for c in hittable.COLUMNS:
+        if not np.array_equal(a.cols[c], b.cols[c]):
+            raise AssertionError(f"{what}: column {c} differs")
+
+
+def _scalar_chunk(groups, items):
+    """The scalar Demuxer's rows of each (read id, sequence) in ``items``
+    (runs in a worker process)."""
+    from barbell_tpu_torch.models.demux import Demuxer
+
+    d = Demuxer(alpha=0.4)
+    for g in groups:
+        d.add_query_group(g)
+    return [d.demux(rid, seq) for rid, seq in items]
+
+
+def _scalar_rows_equal(pool, groups, table, ids, seqs, n, what):
+    """The table's rows of its first ``n`` reads equal the scalar
+    Demuxer's, computed in ``pool``'s worker processes (the scalar search
+    takes ~0.1-0.3 s a read of a 96-barcode group)."""
+    from barbell_tpu_torch.models import hittable
+
+    items = list(zip(ids, seqs))[:n]
+    size = -(-len(items) // WORKERS)
+    chunks = [items[i : i + size] for i in range(0, len(items), size)]
+    want = [m for part in pool.map(_scalar_chunk, [groups] * len(chunks), chunks)
+            for m in part]
+    rows = hittable.table_to_matches(table)
+    for (rid, _seq), got, w in zip(items, rows, want):
+        if got != w:
+            raise AssertionError(f"{what}: read {rid} differs from the scalar Demuxer")
+
+
+def _wall_ms(fn, reps=3):
+    """Mean host wall ms of ``fn`` (one batch, ending in its fetch)."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1000 / reps
+
+
+def check_fused(ends_reads, wrappers, smi, pool) -> None:
+    """The fused dispatch against the per-group dispatch on three
+    two-group inputs, and against the scalar Demuxer (in ``pool``) on the
+    first N_SCALAR reads of each: the extended path's first batch (reads
+    0-2047 of the ends set), 256 reads with a standard and a mid-read
+    fusion construct (both under ``--use-extended``'s whole-read scan),
+    and 256 EXP-PBC096 reads with an Ftag and an rc Rtag construct (under
+    the kit's two-tier ends plan).  Prints each dispatch's wall ms per
+    batch (a smoke figure)."""
+    from barbell_tpu_torch.models.pipeline import TorchDemuxEngine
+    from barbell_tpu_torch.models.twotier import make_ends_engine
+    from barbell_tpu_torch.stages.kit import kit_groups, kit_plan
+
+    ext = kit_groups(KIT, use_extended=True)
+    pcr = kit_groups("EXP-PBC096")
+    pcr_plan = kit_plan("EXP-PBC096")
+    batch = ([r for r, _s, _l in ends_reads[:BATCH]],
+             [s for _r, s, _l in ends_reads[:BATCH]])
+    inputs = (
+        ("extended batch", ext, TorchDemuxEngine(ext, device="cuda"), batch),
+        ("fusion reads", ext, TorchDemuxEngine(ext, device="cuda"),
+         _two_construct_reads(ext, N_FUSED, SEED + 5, fusion=True)),
+        ("EXP-PBC096 reads", pcr, make_ends_engine(pcr, pcr_plan, device="cuda"),
+         _two_construct_reads(pcr, N_FUSED, SEED + 6, fusion=False)),
+    )
+    for name, groups, eng, (ids, seqs) in inputs:
+        tiers = [getattr(eng, t) for t in ("shallow", "deep") if hasattr(eng, t)] or [eng]
+        for w in wrappers:
+            w.launches = 0
+        fused = eng.demux_batch_table(ids, seqs)
+        torch.cuda.synchronize()
+        launches = {w.__name__: w.launches for w in wrappers}
+        if eng.last_dispatch != "single-fused":
+            raise AssertionError(f"{name}: dispatch {eng.last_dispatch}")
+        fused_ms = _wall_ms(lambda: eng.demux_batch_table(ids, seqs))
+        for t in tiers:
+            t.fuse_groups = False
+        per_group = eng.demux_batch_table(ids, seqs)
+        if eng.last_dispatch != "single":
+            raise AssertionError(f"{name}: per-group dispatch {eng.last_dispatch}")
+        per_group_ms = _wall_ms(lambda: eng.demux_batch_table(ids, seqs))
+        _tables_equal(fused, per_group, name)
+        n_scalar = min(len(ids), N_SCALAR)
+        t0 = time.perf_counter()
+        _scalar_rows_equal(pool, groups, fused, ids, seqs, n_scalar, name)
+        log(f"[fused] {name}: {len(ids)} reads, {fused.n_rows} rows, launches "
+            f"{launches}; fused table = per-group table, = scalar Demuxer on "
+            f"{n_scalar} reads ({time.perf_counter() - t0:.1f}s); wall per batch "
+            f"fused {fused_ms:.1f} ms, per-group {per_group_ms:.1f} ms (smoke "
+            f"figure, not a benchmark; {smi})")
+
+
+def _n_reads(rng, n, lo, hi):
+    """``n`` SQK-RBK114-96 reads with ``lo``-``hi``-base bodies, every
+    fourth body base an N (scattered Ns: a run of them would match the
+    flank everywhere and send the rows to the scalar fallback); the reads
+    stay under the ends plan's full cover, so the ends scan sees every
+    base."""
+    from barbell_tpu_torch.sim.simulate import (
+        default_barcodes,
+        mutate_sequence,
+        rapid_adapter,
+        random_sequence,
+    )
+    from barbell_tpu_torch.utils import dna
+
+    bcs = default_barcodes(96)
+    ids, seqs = [], []
+    for i in range(n):
+        body = random_sequence(rng, rng.randrange(lo, hi))
+        body[::4] = b"N" * len(body[::4])
+        seq = rapid_adapter(bcs[rng.randrange(96)][1]) + bytes(body)
+        if i % 2:
+            seq = dna.reverse_complement_bytes(seq)
+        ids.append(f"n{i}")
+        seqs.append(mutate_sequence(rng, seq, 0, 3))
+    return ids, seqs
+
+
+def check_host_forms(ends_reads, wrappers, pool) -> None:
+    """Nibble rows and uploaded metadata on the card: a batch of 64 reads
+    carrying over 4096 N bytes takes pack mode 0 by itself and equals
+    the scalar Demuxer (in ``pool``); the first 2048 ends reads under
+    BARBELL_PACK_MODE=0 and under BARBELL_META_MODE=wire give the default
+    path's table.  Every engine runs the kit's two-tier ends plan."""
+    import random
+
+    from barbell_tpu_torch.models.twotier import make_ends_engine
+    from barbell_tpu_torch.stages.kit import kit_groups, kit_plan
+
+    groups, plan = kit_groups(KIT), kit_plan(KIT)
+    ids, seqs = _n_reads(random.Random(SEED + 7), N_NBATCH, 300, 600)
+    eng = make_ends_engine(groups, plan, device="cuda")
+    with CallSpy() as spy:
+        table = eng.demux_batch_table(ids, seqs)
+    if not spy.calls or set(spy.calls) != {(0, "wire")}:
+        raise AssertionError(f"N batch: fused calls {spy.calls}, want nibble rows")
+    _scalar_rows_equal(pool, groups, table, ids, seqs, len(ids), "N batch")
+    log(f"[host forms] {N_NBATCH} reads with {sum(s.count(b'N') for s in seqs)} N bytes: "
+        f"calls {spy.calls} (pack mode 0, wire metadata); {table.n_rows} rows "
+        f"= scalar Demuxer")
+
+    ids = [r for r, _s, _l in ends_reads[:BATCH]]
+    seqs = [s for _r, s, _l in ends_reads[:BATCH]]
+    want = make_ends_engine(groups, plan, device="cuda").demux_batch_table(ids, seqs)
+    for var, value, form in (("BARBELL_PACK_MODE", "0", (0, "wire")),
+                             ("BARBELL_META_MODE", "wire", (2, "wire"))):
+        os.environ[var] = value
+        try:
+            for w in wrappers:
+                w.launches = 0
+            with CallSpy() as spy:
+                got = make_ends_engine(groups, plan, device="cuda").demux_batch_table(
+                    ids, seqs)
+            torch.cuda.synchronize()
+        finally:
+            del os.environ[var]
+        if set(spy.calls) != {form}:
+            raise AssertionError(f"{var}={value}: fused calls {spy.calls}")
+        _tables_equal(got, want, f"{var}={value}")
+        log(f"[host forms] {var}={value}: {len(ids)} ends reads, calls "
+            f"{sorted(set(spy.calls))}, launches "
+            f"{ {w.__name__: w.launches for w in wrappers} }; table = default "
+            f"path's ({want.n_rows} rows)")
+
+
+def check_staged(fq, d) -> None:
+    """``kit --no-stream`` (the staged four-pass runner) writes the
+    streaming runner's files byte for byte."""
+    out = {}
+    with _quiet(d, "staged"):
+        for name, stream in (("stream", True), ("staged", False)):
+            o = os.path.join(d, f"staged_{name}")
+            _kit(fq, o, "torch", stream=stream,
+                 failed_out=os.path.join(o, "failed.txt"))
+            out[name] = _files(o)
+    if out["stream"] != out["staged"]:
+        diff = sorted(f for f in set(out["stream"]) | set(out["staged"])
+                      if out["stream"].get(f) != out["staged"].get(f))
+        raise AssertionError(f"staged runner's files differ: {diff}")
+    log(f"[staged] kit --no-stream on {BATCH} ends reads: {len(out['stream'])} "
+        f"files byte-identical to the streaming runner's "
+        f"({sum(f.endswith('.trimmed.fastq') for f in out['stream'])} trimmed FASTQs)")
+
+
+def check_compare(d, wrappers) -> None:
+    """``sim -n 200 -r 0`` and ``compare --verify`` through the port's
+    command line on the card, scored per group: every group's (assigned,
+    correct) is COMPARE_EXPECTED's, so GroupII is fully recovered, GroupI,
+    IV and VI rejected, GroupIII correct, and GroupV's reads are correct
+    nowhere; the whole-read scan (``kit --full-scan``) rejects GroupV."""
+    from barbell_tpu_torch import cli
+    from barbell_tpu_torch.sim.compare import evaluate_group
+    from barbell_tpu_torch.sim.simulate import GROUPS
+    from barbell_tpu_torch.stages.kit import KitRunConfig, demux_using_kit
+
+    sim, work = os.path.join(d, "cmp_sim"), os.path.join(d, "cmp_work")
+    for w in wrappers:
+        w.launches = 0
+    with _quiet(d, "compare"):
+        if cli.main(["sim", "-n", str(N_COMPARE), "-o", sim, "-r", "0"]) != 0:
+            raise AssertionError("sim failed")
+        t0 = time.perf_counter()
+        if cli.main(["compare", "--sim-dir", sim, "-o", work, "--verify"]) != 0:
+            raise AssertionError("compare failed")
+        dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = {w.__name__: w.launches for w in wrappers}
+    for g in GROUPS:
+        r = evaluate_group(
+            g, os.path.join(sim, f"{g}.fastq"), os.path.join(sim, f"{g}_truth.txt"),
+            os.path.join(work, g))
+        log(f"[compare] {g}: {r.total_reads} reads, assigned {r.assigned}, "
+            f"correct {r.correct}")
+        if r.total_reads != N_COMPARE or (r.assigned, r.correct) != COMPARE_EXPECTED[g]:
+            raise AssertionError(f"compare: {g}: {r}, want (assigned, correct) "
+                                 f"{COMPARE_EXPECTED[g]}")
+    full = os.path.join(d, "cmp_groupV_full")
+    with _quiet(d, "compare_full"):
+        demux_using_kit([os.path.join(sim, "GroupV.fastq")],
+                        KitRunConfig(kit_name="SQK-RBK110-96", output_folder=full,
+                                     full_scan=True), device="cuda")
+    v_full = evaluate_group("GroupV", os.path.join(sim, "GroupV.fastq"),
+                            os.path.join(sim, "GroupV_truth.txt"), full)
+    if v_full.assigned:
+        raise AssertionError(f"compare: GroupV not rejected by the whole-read scan: {v_full}")
+    log(f"[compare] outcomes as expected in {dt:.1f}s (launches {launches}); "
+        f"GroupV: {COMPARE_EXPECTED['GroupV'][0]} reads assigned under the ends "
+        f"scan (mid-read constructs it does not scan), 0 under kit --full-scan")
 
 
 def main() -> int:
@@ -1045,6 +1470,7 @@ def main() -> int:
     opts = ap.parse_args()
     if opts.package:
         sys.path.insert(0, os.path.abspath(opts.package))
+    t_start = time.perf_counter()
     smi = probe()
     from barbell_tpu_torch.ops import myers, rank, window
     from barbell_tpu_torch.sim import make_reads_rbk, write_fastq
@@ -1053,13 +1479,18 @@ def main() -> int:
     engine = _flagship_engine()
     log(f"engine set up in {time.perf_counter() - t0:.1f}s (builds the native "
         f"IO library on first use)")
-    kernels = check_ends_kernels(engine, sweep=opts.kernels_only)
+    with timed("ends kernels"):
+        kernels = check_ends_kernels(engine, sweep=opts.kernels_only)
     t0 = time.perf_counter()
     n_edge = check_edge_kernels(engine.alpha_scaled)
     log(f"{n_edge} edge cases equal to their plain versions in "
         f"{time.perf_counter() - t0:.1f}s")
     if opts.kernels_only:
-        kernels += check_whole_read_kernels(engine, WHOLE_READ_BATCHES, sweep=True)
+        kernels += check_batch_kernels(engine, WHOLE_READ_BATCHES, "whole-read",
+                                       SEED + 2, sweep=True)
+        kernels += check_batch_kernels(engine, EXTENDED_BATCHES, "extended",
+                                       SEED + 3, sweep=True,
+                                       gp=_extended_engine().plans[1])
         print(json.dumps({"kernels": kernels}))
         print(smi)
         return 0
@@ -1072,49 +1503,84 @@ def main() -> int:
     by_path = {}
     whole_batches = []
     captured = {}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as d:
+    spawn = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as d, \
+            ProcessPoolExecutor(WORKERS, mp_context=spawn) as pool:
+        # the oracle backend's runs of each path's first reads go to the
+        # worker processes alongside the simulation (the first reads of
+        # a set do not depend on its size)
         t0 = time.perf_counter()
-        ends_reads = make_reads_rbk(N_ENDS, SEED)
-        whole_reads = make_reads_rbk(N_WHOLE, SEED, long_every=LONG_EVERY)
+        sub_reads = {"ends": make_reads_rbk(ORACLE_READS, SEED),
+                     "whole": make_reads_rbk(ORACLE_READS, SEED,
+                                             long_every=LONG_EVERY)}
+        oracle_jobs = {}
+        for name in PATHS:
+            key = "ends" if name in ("kit", "kit_extended") else "whole"
+            write_fastq(os.path.join(d, f"{name}_sub.fastq"), sub_reads[key])
+            oracle_jobs[name] = pool.submit(_oracle_run, name, d)
         fq_ends = os.path.join(d, "ends.fastq")
         fq_whole = os.path.join(d, "whole.fastq")
-        write_fastq(fq_ends, ends_reads)
-        write_fastq(fq_whole, whole_reads)
+        ends_job = pool.submit(_simulate, N_ENDS, 0, fq_ends)
+        whole_reads = _simulate(N_WHOLE, LONG_EVERY, fq_whole)
+        ends_reads = ends_job.result()
+        for key, reads in (("ends", ends_reads), ("whole", whole_reads)):
+            if reads[:ORACLE_READS] != sub_reads[key]:
+                raise AssertionError(f"the {key} set's first reads differ")
         n_long = sum(len(s) > 8192 for _r, s, _l in whole_reads)
         log(f"simulated {len(ends_reads)} + {len(whole_reads)} reads "
             f"({n_long} longer than 8192 bases) in "
             f"{time.perf_counter() - t0:.1f}s")
 
-        by_path["kit"], _, captured["ends (captured)"] = run_path(
-            "kit", _kit, fq_ends, d, ends_reads, wrappers, on_path, smi)
-        oracle_parity("kit", _kit, ends_reads, d)
+        with timed("kit path"):
+            by_path["kit"], _, captured["ends (captured)"] = run_path(
+                "kit", fq_ends, d, ends_reads, wrappers, on_path, smi)
+            oracle_parity("kit", ends_reads, d, oracle_jobs["kit"])
+        with timed("kit_extended path"):
+            by_path["kit_extended"], ext_batches, captured["extended (captured)"] = \
+                run_path("kit_extended", fq_ends, d, ends_reads, wrappers,
+                         on_path, smi)
+            check_extended_launches(ext_batches, by_path["kit_extended"])
+            oracle_parity("kit_extended", ends_reads, d, oracle_jobs["kit_extended"])
+        with timed("fused"):
+            check_fused(ends_reads, wrappers, smi, pool)
+        with timed("host forms"):
+            check_host_forms(ends_reads, wrappers, pool)
+        fq_batch = os.path.join(d, "ends_batch.fastq")
+        write_fastq(fq_batch, ends_reads[:BATCH])
+        with timed("staged"):
+            check_staged(fq_batch, d)
+        with timed("compare"):
+            check_compare(d, wrappers)
+        for name in ("annotate", "kit_full_scan"):
+            with timed(f"{name} path"):
+                by_path[name], batches, args = run_path(
+                    name, fq_whole, d, whole_reads, wrappers,
+                    on_path + ["rank_pass1"], smi)
+                if name == "annotate":
+                    captured["whole-read (captured)"] = args
+                whole_batches += batches
+                oracle_parity(name, whole_reads, d, oracle_jobs[name])
 
-        def kit_full(fq, out, backend):
-            _kit(fq, out, backend, full_scan=True)
-
-        for name, run in (("annotate", _annotate), ("kit_full_scan", kit_full)):
-            by_path[name], batches, args = run_path(
-                name, run, fq_whole, d, whole_reads, wrappers,
-                on_path + ["rank_pass1"], smi)
-            if name == "annotate":
-                captured["whole-read (captured)"] = args
-            whole_batches += batches
-            oracle_parity(name, run, whole_reads, d)
-
-    kernels += check_whole_read_kernels(engine, whole_batches)
-    for path, args in captured.items():
-        R, L = args[2].shape
-        kc = KernelCheck(engine, path, SEED + 4)
-        kc.myers_topk(args, f"rows [{R}, {L}], m = {args[1]}, captured",
-                      sweep=True)["inputs"] = "captured"
-        kernels += kc.entries
+    with timed("whole-read kernels"):
+        kernels += check_batch_kernels(engine, whole_batches, "whole-read", SEED + 2)
+    with timed("extended kernels"):
+        kernels += check_batch_kernels(engine, ext_batches, "extended", SEED + 3,
+                                       gp=_extended_engine().plans[1])
+    with timed("captured Myers"):
+        for path, args in captured.items():
+            R, L = args[2].shape
+            kc = KernelCheck(engine, path, SEED + 4)
+            kc.myers_topk(args, f"rows [{R}, {L}], m = {args[1]}, captured",
+                          sweep=True)["inputs"] = "captured"
+            kernels += kc.entries
+    path_runs = {"ends": ("kit",), "whole-read": ("annotate", "kit_full_scan"),
+                 "extended": ("kit_extended",)}
     for entry in kernels:
         n = entry["name"]
         entry["launches_by_path"] = {p: c[n] for p, c in by_path.items()}
-        if entry["path"].startswith("ends"):
-            entry["launches"] = by_path["kit"][n]
-        elif entry["path"].startswith("whole-read"):
-            entry["launches"] = by_path["annotate"][n] + by_path["kit_full_scan"][n]
+        runs = path_runs[entry["path"].split(" (")[0]]
+        entry["launches"] = sum(by_path[r][n] for r in runs)
+    log(f"all phases passed in {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({

@@ -1,8 +1,9 @@
 """The port imports neither jax nor the JAX package: every
-barbell_tpu_torch module imports, one CPU engine batch runs in each scan
-mode, and the command line runs ``annotate`` and ``filter``, in a
-process where importing ``jax`` or ``barbell_tpu`` fails; the chip
-script imports neither; and the port's command line runs its kit path."""
+barbell_tpu_torch module imports (``sim.compare`` and ``sim.ingest``
+among them), one CPU engine batch runs in each scan mode, and the
+command line runs ``annotate`` and ``filter``, in a process where
+importing ``jax`` or ``barbell_tpu`` fails; the chip script imports
+neither; and the port's command line runs its kit path."""
 
 import ast
 import os
@@ -23,6 +24,7 @@ sys.modules["barbell_tpu"] = None  # and so does the JAX package
 import barbell_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(
     barbell_tpu_torch.__path__, "barbell_tpu_torch.")]
+assert {"barbell_tpu_torch.sim.compare", "barbell_tpu_torch.sim.ingest"} <= set(names)
 for name in names:
     importlib.import_module(name)
 import chip_smoke  # the chip script imports neither
@@ -77,7 +79,7 @@ def test_port_imports_and_runs_without_jax():
     )
     assert res.returncode == 0, res.stdout + res.stderr
     n_modules = int(res.stdout.split("MODULES")[1].split()[0])
-    assert n_modules >= 35
+    assert n_modules >= 37
 
 
 def test_chip_smoke_imports_only_the_port():
@@ -123,9 +125,12 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
         assert '"ok"' not in res.stdout
 
 
-def test_cli_kit_oracle_delegation_and_not_ported(tmp_path, capsys):
+def test_cli_kit_oracle_delegation_and_not_ported(tmp_path, capsys,
+                                                 monkeypatch):
     """The port's ``kit`` on the oracle backend writes the JAX CLI's
-    stage files; its host commands run; what is not ported exits 2."""
+    stage files; its host commands run; a command missing its inputs
+    exits 1; what is not ported (``BARBELL_PROFILE_DIR`` tracing) exits
+    2."""
     from barbell_tpu import cli as reference_cli
     from barbell_tpu.sim.simulate import default_barcodes, rapid_adapter
     from barbell_tpu_torch.cli import main
@@ -145,7 +150,9 @@ def test_cli_kit_oracle_delegation_and_not_ported(tmp_path, capsys):
     assert main(["inspect", "-i", str(tmp_path / "port" / "annotation.tsv")]) == 0
     assert main(["kits"]) == 0
     assert main(["annotate", "-i", str(fq)]) == 1  # needs --kit or -q
-    assert main(["compare", "--sim-dir", "x"]) == 2
-    assert main(["kit", "-k", "SQK-RBK114-96", "-i", str(fq), "-o",
-                 str(tmp_path / "x"), "--use-extended"]) == 2
+    assert main(["compare", "--sim-dir", "x"]) == 1  # needs -o
+    capsys.readouterr()
+    monkeypatch.setenv("BARBELL_PROFILE_DIR", str(tmp_path / "trace"))
+    assert main(["annotate", "-i", str(fq), "--kit", "SQK-RBK114-96",
+                 "--backend", "oracle"]) == 2
     assert "not ported yet" in capsys.readouterr().out
