@@ -1,21 +1,25 @@
 """Command line of the port: ``python -m barbell_tpu_torch <command>``.
 
 ``annotate``, ``kit`` and ``compare`` run on the port's engine
-(``--backend torch`` on the CUDA device, or the scalar ``oracle``;
-``compare`` also takes ``auto``, which is ``torch``); ``filter``,
-``trim``, ``inspect``, ``kits`` and ``sim`` are host-only, as in
-barbell_tpu.  Flag names and defaults follow barbell_tpu's CLI.  What
-is not ported yet (``annotate``'s multi-host sharding and
-``BARBELL_PROFILE_DIR`` tracing) exits with status 2.
+(``--backend torch`` or ``auto``, the default: the CUDA device, with no
+fall-back; or the scalar ``oracle``); ``filter``, ``trim``, ``inspect``,
+``kits`` and ``sim`` are host-only, as in barbell_tpu.  Flag names and
+defaults follow barbell_tpu's CLI.  ``annotate --shard-rank r
+--shard-world w`` writes rank r's record stripe to
+``<output>.shard-r<ext>`` (merged by
+:func:`~barbell_tpu_torch.parallel.distributed.merge_annotation_shards`).
+``BARBELL_DEBUG=1`` re-raises the errors that otherwise exit 1.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 from typing import List, Optional
 
 from .models.records import BarcodeType
+from .parallel.distributed import shard_output_path
 from .sim.ingest import IMPORT_TOOLS
 from .stages.annotate import (
     BACKENDS,
@@ -28,14 +32,14 @@ from .stages.inspect import inspect
 from .stages.kit import KitRunConfig, demux_using_kit
 from .stages.trim import LabelConfig, trim_matches
 
-DEVICE = "cuda"  # --backend torch
+DEVICE = "cuda"  # --backend torch and auto
 
 
 def _add_backend_args(p: argparse.ArgumentParser) -> None:
     p.add_argument(
-        "--backend", choices=list(BACKENDS), default="torch",
-        help="torch: the batched pipeline on the CUDA device; oracle: the "
-        "scalar NumPy engine",
+        "--backend", choices=list(BACKENDS), default="auto",
+        help="auto and torch: the batched pipeline on the CUDA device; "
+        "oracle: the scalar NumPy engine",
     )
     p.add_argument("--batch-size", type=int, default=2048,
                    help="Reads per device batch")
@@ -51,6 +55,7 @@ def build_parser() -> argparse.ArgumentParser:
 
     p = sub.add_parser("annotate", help="Annotate FASTQ files with barcode information")
     p.add_argument("-i", "--input", nargs="+", required=True, help="Read FASTQ file(s)")
+    p.add_argument("-t", "--threads", type=int, default=10)
     p.add_argument("-o", "--output", default="output.tsv")
     p.add_argument("-q", "--queries", nargs="+", help="Query FASTA file(s)")
     p.add_argument(
@@ -59,14 +64,20 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--kit", help="Kit name (e.g. SQK-RBK114-24)")
     p.add_argument("--flank-max-errors", type=int, default=None)
+    p.add_argument("--verbose", action="store_true")
     p.add_argument("--min-score", type=float, default=0.2)
     p.add_argument("--min-score-diff", type=float, default=0.1)
+    p.add_argument("--use-extended", action="store_true")
     p.add_argument("--alpha", type=float, default=0.4)
     p.add_argument(
         "--ends-window", type=int, default=None,
         help="Scan only each read's first/last N bases (device backend;"
         " mid-read hits are skipped). Default: whole-read scan.",
     )
+    p.add_argument("--shard-rank", type=int, default=None,
+                   help="Multi-host: this host's rank (with --shard-world)")
+    p.add_argument("--shard-world", type=int, default=None,
+                   help="Multi-host: total number of hosts")
     _add_backend_args(p)
 
     p = sub.add_parser("filter", help="Filter annotation files based on pattern")
@@ -151,7 +162,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Independently re-verify assignments with a direct search")
     p.add_argument("--time", action="store_true", dest="time_runs",
                    help="Report per-group wall clock and reads/s")
-    p.add_argument("--backend", choices=["auto", *BACKENDS], default="auto",
+    p.add_argument("--backend", choices=list(BACKENDS), default="auto",
                    help="auto and torch: the batched pipeline on the CUDA "
                    "device; oracle: the scalar NumPy engine")
     p.add_argument("--import-tool", choices=list(IMPORT_TOOLS),
@@ -179,10 +190,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
     try:
         return _dispatch(args)
-    except NotImplementedError as exc:
-        print(f"Error: {exc}")
-        return 2
     except (KeyError, ValueError, OSError) as exc:
+        if os.environ.get("BARBELL_DEBUG"):
+            raise
         print(f"Error: {exc.args[0] if exc.args else exc}")
         return 1
 
@@ -193,14 +203,29 @@ def _dispatch(args) -> int:
         config = AnnotateConfig(
             max_flank_errors=args.flank_max_errors,
             alpha=args.alpha,
+            n_threads=args.threads,
+            verbose=args.verbose,
             min_score=args.min_score,
             min_score_diff=args.min_score_diff,
+            use_extended=args.use_extended,
             backend=args.backend,
             batch_size=args.batch_size,
             ends_window=args.ends_window,
         )
+        output = args.output
+        if args.shard_world is None and args.shard_rank is not None:
+            raise ValueError("--shard-rank requires --shard-world")
+        if args.shard_world is not None:
+            rank = args.shard_rank or 0
+            if args.shard_world < 1 or not (0 <= rank < args.shard_world):
+                raise ValueError(
+                    f"--shard-rank must be in [0, --shard-world); got "
+                    f"rank {rank}, world {args.shard_world}"
+                )
+            config.shard = (rank, args.shard_world)
+            output = shard_output_path(args.output, rank, args.shard_world)
         if args.kit:
-            annotate_with_kit(args.input, args.output, args.kit, config, DEVICE)
+            annotate_with_kit(args.input, output, args.kit, config, DEVICE)
         else:
             if not args.queries:
                 print("Error: --queries is required unless --kit is provided")
@@ -210,7 +235,7 @@ def _dispatch(args) -> int:
             except ValueError as e:
                 print(f"Error during processing: {e}; use one of: Ftag, Rtag")
                 return 1
-            annotate_with_files(args.input, args.queries, types, args.output,
+            annotate_with_files(args.input, args.queries, types, output,
                                 config, DEVICE)
         print("Annotation complete!")
 

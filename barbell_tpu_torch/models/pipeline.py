@@ -30,13 +30,29 @@ and reads under 2**29 bases, uploaded (``'wire'``) otherwise or under
 one device call per batch with one fetch (``last_dispatch ==
 "single-fused"``).
 
-Not ported here: the padded 2-bit pack mode 1 and multi-device meshes.
+With more than one device (``devices``; :mod:`~barbell_tpu_torch.parallel.mesh`)
+each batch's reads split into one row block per device, balanced by row
+count with a read's rows on one device (:meth:`TorchDemuxEngine._partition_reads`).
+Every block is padded to the same shapes, its arrays go to its device,
+and its fused call is enqueued there before any block is fetched
+(``last_dispatch == "sharded"``, or ``"sharded-fused"`` for several
+groups); the blocks' hit records merge group-major, block-minor.
+
+``BARBELL_TIMING=1`` accumulates each phase's wall time into
+:data:`TIMINGS` (:func:`timing_report`): ``encode``, ``pack_upload``,
+``demux_call.dispatch`` (enqueue of the fused call), ``demux_call.fetch``
+(the synchronous copy back) and ``assemble.host``.
+
+Not ported here: the padded 2-bit pack mode 1.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
+import threading
+import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
@@ -53,7 +69,8 @@ from ..utils import dna
 from . import hittable
 from .barcodes import BarcodeGroup
 from .demux import COLLAPSE_OVERLAP, Demuxer
-from .groups import GroupPlan
+from ..parallel.mesh import resolve_devices
+from .groups import GroupPlan, group_tensors_from_numpy
 from .hittable import HitTable
 from .records import Strand
 
@@ -61,20 +78,55 @@ MAX_ROW_LEN = 8192  # chunk width for long reads
 MAX_HITS_PER_ROW = 16  # K for valley compaction
 _EXC_CAP = 4096  # non-ACGT bytes per batch the 2-bit encoding carries
 _CAT_BUCKET = 128 * 1024  # concatenated-code buffer size floor
+
+# Phase timing (BARBELL_TIMING=1): wall time per pipeline phase into
+# TIMINGS {name: [seconds, calls]}.  The fetch is synchronous, so
+# demux_call.fetch holds the device time the enqueue did not cover.
+TIMINGS: Dict[str, List[float]] = {}
+_TIMING = os.environ.get("BARBELL_TIMING", "") not in ("", "0")
+_TIMING_LOCK = threading.Lock()
+
+
+@contextlib.contextmanager
+def _phase(name: str):
+    if not _TIMING:
+        yield
+        return
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        dt = time.perf_counter() - t0
+        # engine_map_batches runs batches on several worker threads: an
+        # unlocked += would lose updates of the busiest phases
+        with _TIMING_LOCK:
+            acc = TIMINGS.setdefault(name, [0.0, 0])
+            acc[0] += dt
+            acc[1] += 1
+
+
+def timing_report() -> str:
+    lines = [
+        f"  {name:24s} {acc[0]:8.3f}s  n={acc[1]}"
+        for name, acc in sorted(TIMINGS.items())
+    ]
+    return "\n".join(lines)
+
+
 #: batches in flight in engine_map_batches
-PIPELINE_DEPTH = 8
-
-_NOT_PORTED = "not ported yet (see ROADMAP.md, 'Off the main path')"
+DEFAULT_PIPELINE_DEPTH = int(os.environ.get("BARBELL_PIPELINE_DEPTH", "8"))
 
 
-def engine_map_batches(engine, batches, method: str = "demux_batch_table"):
+def engine_map_batches(engine, batches, depth: Optional[int] = None,
+                       method: str = "demux_batch_table"):
     """Run ``engine.<method>`` over an iterator of (ids, seqs) batches
-    with PIPELINE_DEPTH batches in flight on worker threads; yields (ids,
-    seqs, result) in order.  ``method`` is ``demux_batch_table``
-    (columnar HitTable) or ``demux_batch`` (per-read match lists, the
-    oracle engine).  Host planning of one batch overlaps another batch's
-    device work (kernels and copies release the GIL)."""
-    depth = PIPELINE_DEPTH
+    with ``depth`` (default DEFAULT_PIPELINE_DEPTH) batches in flight on
+    worker threads; yields (ids, seqs, result) in order.  ``method`` is
+    ``demux_batch_table`` (columnar HitTable) or ``demux_batch`` (per-read
+    match lists, the oracle engine).  Host planning of one batch overlaps
+    another batch's device work (kernels and copies release the GIL)."""
+    if depth is None:
+        depth = DEFAULT_PIPELINE_DEPTH
     fn = getattr(engine, method)
     with ThreadPoolExecutor(max_workers=depth) as pool:
         inflight = deque()
@@ -168,6 +220,10 @@ class TorchDemuxEngine:
     """Demux engine: whole-read scan (``ends_window`` None) or ends scan;
     ``device`` is where the fused call runs (``"cuda"`` launches the
     hand-written kernels, ``"cpu"`` runs their plain PyTorch versions);
+    ``devices`` the reads mesh each batch of more than one read is
+    sharded over (default: ``[device]``, and every visible card for
+    ``"cuda"``; see :func:`~barbell_tpu_torch.parallel.mesh.resolve_devices`;
+    when given, a one-read batch runs on its first entry);
     ``meta_mode`` (default: ``BARBELL_META_MODE``, else ``'desc'``)
     ``'wire'`` uploads every batch's metadata instead of deriving it on
     the device."""
@@ -182,12 +238,14 @@ class TorchDemuxEngine:
         ends_window=None,  # None | int (symmetric) | (W_left, W_right)
         device="cuda",
         meta_mode: Optional[str] = None,  # 'desc' | 'wire'
+        devices: Optional[Sequence] = None,
     ):
-        self.device = torch.device(device)
+        self.devices = resolve_devices(device, devices)
+        self.device = self.devices[0] if devices is not None else torch.device(device)
         # build what the batches need once, here, and not inside the
         # first batch: the kernels and the native 2-bit encoder (without
         # it, batches take the nibble pack mode)
-        if self.device.type == "cuda":
+        if any(d.type == "cuda" for d in self.devices + [self.device]):
             _build.load()
         get_lib()
         if meta_mode is None:
@@ -199,7 +257,8 @@ class TorchDemuxEngine:
         #: per-group path the fused call is held equal to
         self.fuse_groups = True
         #: the last batch's dispatch: "single-fused" (every group in one
-        #: device call) or "single" (a call per group)
+        #: device call) or "single" (a call per group); "sharded-fused"
+        #: or "sharded" when the batch was split over the mesh
         self.last_dispatch: Optional[str] = None
         self.groups = list(groups)
         self.alpha = float(alpha)
@@ -216,6 +275,18 @@ class TorchDemuxEngine:
         self.max_row_len = max_row_len
         self.K = MAX_HITS_PER_ROW
         self.plans = [GroupPlan(g, self.device) for g in self.groups]
+        # the groups' query tensors on every device of the mesh, by the
+        # device their tensors land on ("cuda" names the current card)
+        self._replicas: Dict[str, list] = {
+            str(self.plans[0].tensors.flank.device): [p.tensors for p in self.plans]
+        }
+        for d in self.devices:
+            key = str(torch.empty(0, device=d).device)
+            if key not in self._replicas:
+                self._replicas[key] = [
+                    group_tensors_from_numpy(p.flank, p.patw, p.patterns_all, d)
+                    for p in self.plans
+                ]
         self.halo = max(p.span for p in self.plans) + PADDING + 2
         self._fallback: Optional[Demuxer] = None
         # Sticky hit-record capacity: the first overflow raises it for
@@ -311,9 +382,16 @@ class TorchDemuxEngine:
 
         L = self._choose_L(lens)
         step = L - PADDING - self.halo
-        plan = self._plan(lens, L, step)
-        R_host_pad = _pow2_at_least(max(plan.R_host, 1), 8)
-        S_pad = _pow2_at_least(max(plan.F, 1), 8)
+        sharded = len(self.devices) > 1 and B > 1
+        devices = self.devices if sharded else [self.device]
+        D = len(devices)
+        buckets = (self._partition_reads(lens, L, step, D) if sharded
+                   else [range(B)])
+        plans = [self._plan(lens, L, step, bucket) for bucket in buckets]
+        # every shard pads to the same shapes
+        R_host_pad = _pow2_at_least(max(max(p.R_host for p in plans), 1), 8)
+        S_pad = _pow2_at_least(max(max(p.F for p in plans), 1), 8)
+        C_pad = _pow2_at_least(max(max(len(p.rows_meta) for p in plans), 1), 8)
         R_total_pad = R_host_pad + S_pad
         # flat row indexing is int32: split oversized batches
         if R_total_pad * L >= 2**31:
@@ -325,16 +403,91 @@ class TorchDemuxEngine:
                 self.demux_batch_table(read_ids[half:], seqs[half:]),
             )
 
-        mat = self._materialize(plan, seq_bytes, lens, L, R_host_pad, S_pad)
+        mats = [self._materialize(p, seq_bytes, lens, L, R_host_pad, S_pad,
+                                  C_pad=C_pad) for p in plans]
+        # one pack mode for every shard: one falling back to nibble rows
+        # re-packs them all
+        if len({m.pack_mode for m in mats}) > 1:
+            mats = [self._materialize(p, seq_bytes, lens, L, R_host_pad, S_pad,
+                                      force_nibble=True, C_pad=C_pad)
+                    for p in plans]
+        # descriptor metadata needs the 2-bit codes, and the descriptor
+        # packs read lengths in 29 bits
+        desc = (self.meta_mode == "desc" and mats[0].pack_mode == 2
+                and int(lens.max()) < 1 << 29)
+        with _phase("pack_upload"):
+            batches = [self._upload(m, desc, dev, L, step, R_host_pad, S_pad)
+                       for m, dev in zip(mats, devices)]
+
+        packets: List[tuple] = []  # (GroupPlan, packet dict), group-major
+        overflow_reads: set = set()
+        H_cap = max(self._h_cap(len(b), p, R_total_pad)
+                    for b, p in zip(buckets, plans))
+        nw = _over_words(R_total_pad)
+        mode = "sharded" if sharded else "single"
+        # every shard's call is enqueued before any is fetched
+        if len(self.plans) > 1 and self.fuse_groups:
+            # every group in one device call and one fetch a shard
+            self.last_dispatch = mode + "-fused"
+            with _phase("demux_call.dispatch"):
+                outs = [self._dispatch(self.plans, bt, H_cap) for bt in batches]
+            with _phase("demux_call.fetch"):
+                outs = [self._fetch(o) for o in outs]
+            pending, off = [], 0
+            for gplan in self.plans:
+                n = H_cap * self._rec_wire(gplan, L, R_total_pad)[0] + nw + 1
+                pending.append((gplan, [o[off : off + n] for o in outs]))
+                off += n
+        else:
+            self.last_dispatch = mode
+            with _phase("demux_call.dispatch"):
+                pending = [(g, [self._dispatch((g,), bt, H_cap) for bt in batches])
+                           for g in self.plans]
+        for gplan, outs in pending:
+            if isinstance(outs[0], torch.Tensor):  # the fused path fetched
+                with _phase("demux_call.fetch"):
+                    outs = [self._fetch(o) for o in outs]
+            wcols, wbits = self._rec_wire(gplan, L, R_total_pad)
+            cap = H_cap
+            total = max(int(o[-1]) for o in outs)
+            if total > cap:
+                # Hit-dense batch: one retry of this group on every shard
+                # at a larger capacity (sticky — later batches start
+                # there), then whole-batch fallback.
+                cap = _retry_cap(total, H_cap)
+                self._h_cap_hint = max(self._h_cap_hint, cap)
+                outs = [self._dispatch((gplan,), bt, cap) for bt in batches]
+                outs = [self._fetch(o) for o in outs]
+                if max(int(o[-1]) for o in outs) > cap:
+                    overflow_reads.update(range(B))
+                    continue
+            # a read lives on one shard, so group-major shard-minor
+            # packets keep each read's rows in group order
+            for out_np, mat in zip(outs, mats):
+                rec = self._unpack_rec(out_np, cap, wbits)
+                over = out_np[cap * wcols : cap * wcols + nw]
+                for r in _over_rows(over, R_total_pad):
+                    if mat.row_read[r] >= 0:
+                        overflow_reads.add(int(mat.row_read[r]))
+                with _phase("assemble.host"):
+                    pkt = self._gather_packet(rec, mat.row_read, mat.meta)
+                if pkt is not None:
+                    packets.append((gplan, pkt))
+
+        with _phase("assemble.host"):
+            return self._finish_table(read_ids, seqs, lens, packets,
+                                      overflow_reads)
+
+    def _upload(self, mat, desc: bool, device, L: int, step: int,
+                R_host_pad: int, S_pad: int) -> _DevBatch:
+        """One shard's host arrays on ``device``: the descriptor form
+        (``desc``) or the uploaded metadata."""
         exc = mat.exc
         # entries fill the exception list in order: a sentinel at index
         # 64 means <= 64 real entries, so upload only that prefix
         if exc.shape[0] > 64 and exc[64, 0] == R_host_pad * L:
             exc = exc[:64]
-        # descriptor metadata needs the 2-bit codes, and the descriptor
-        # packs read lengths in 29 bits
-        if (self.meta_mode == "desc" and mat.pack_mode == 2
-                and int(lens.max()) < 1 << 29):
+        if desc:
             parts = dict(host_packed=mat.host_packed, rowdesc=mat.rowdesc,
                          chunk_meta=mat.chunk_meta, exc=exc)
         else:
@@ -342,54 +495,36 @@ class TorchDemuxEngine:
                          meta=comp.pack_meta_np(mat.meta),
                          simple_idx=mat.simple_idx, exc=exc,
                          row_start=mat.row_start)
-        batch = _DevBatch(
-            parts={k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+        return _DevBatch(
+            parts={k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
                    for k, v in parts.items()},
             pack_mode=mat.pack_mode, L=L, step=step, S_pad=S_pad,
-            R_total=R_total_pad,
+            R_total=R_host_pad + S_pad,
         )
 
-        packets: List[tuple] = []  # (GroupPlan, packet dict) in plan order
-        overflow_reads: set = set()
-        H_cap = self._h_cap(B, plan, R_total_pad)
-        nw = _over_words(R_total_pad)
-        if len(self.plans) > 1 and self.fuse_groups:
-            # every group in one device call and one fetch
-            self.last_dispatch = "single-fused"
-            out_all = self._call(self.plans, batch, H_cap)
-            pending, off = [], 0
-            for gplan in self.plans:
-                n = H_cap * self._rec_wire(gplan, L, R_total_pad)[0] + nw + 1
-                pending.append((gplan, out_all[off : off + n]))
-                off += n
-        else:
-            self.last_dispatch = "single"
-            pending = [(g, self._call((g,), batch, H_cap)) for g in self.plans]
-        for gplan, out_np in pending:
-            wcols, wbits = self._rec_wire(gplan, L, R_total_pad)
-            cap = H_cap
-            total = int(out_np[-1])
-            if total > cap:
-                # Hit-dense batch: one retry of this group at a larger
-                # capacity (sticky — later batches start there), then
-                # whole-batch fallback.
-                cap = _retry_cap(total, H_cap)
-                self._h_cap_hint = max(self._h_cap_hint, cap)
-                out_np = self._call((gplan,), batch, cap)
-                total = int(out_np[-1])
-                if total > cap:
-                    overflow_reads.update(range(B))
-                    continue
-            rec = self._unpack_rec(out_np, cap, wbits)
-            over = out_np[cap * wcols : cap * wcols + nw]
-            for r in _over_rows(over, R_total_pad):
-                if mat.row_read[r] >= 0:
-                    overflow_reads.add(int(mat.row_read[r]))
-            pkt = self._gather_packet(rec, mat.row_read, mat.meta)
-            if pkt is not None:
-                packets.append((gplan, pkt))
-
-        return self._finish_table(read_ids, seqs, lens, packets, overflow_reads)
+    def _partition_reads(self, lens, L: int, step: int, D: int):
+        """Greedy balanced assignment of whole reads to D shards by row
+        count (a read's chunk rows must share a shard: barcode windows
+        gather from sibling chunk rows).  Deterministic."""
+        B = len(lens)
+        ends_cut = max(L, self.ends_window) if self.ends_window else None
+        nrows = np.ones(B, dtype=np.int64)
+        for r in range(B):
+            n = int(lens[r])
+            if ends_cut is not None and n > ends_cut:
+                nrows[r] = 2  # two host end rows (+2 device twins)
+            elif n > L:
+                nrows[r] = 2 * (1 + -(-(n - L) // step))
+        order = sorted(range(B), key=lambda r: (-nrows[r], r))
+        loads = [0] * D
+        buckets: List[List[int]] = [[] for _ in range(D)]
+        for r in order:
+            d = min(range(D), key=lambda i: (loads[i], i))
+            buckets[d].append(r)
+            loads[d] += int(nrows[r])
+        for b in buckets:
+            b.sort()
+        return buckets
 
     # ------------------------------------------------------------------
 
@@ -444,11 +579,14 @@ class TorchDemuxEngine:
             L //= 2
         return best_L
 
-    def _plan(self, lens, L: int, step: int) -> _Plan:
-        """Simple reads first, then the prefix/suffix row pairs of
-        ends-scan reads, then the fwd + rc chunk rows of reads longer
-        than L.  In ends mode ``_choose_L`` makes L >= min(lmax, W), so
-        only the whole-read scan produces chunk rows."""
+    def _plan(self, lens, L: int, step: int, read_indices=None) -> _Plan:
+        """Row plan of the reads ``read_indices`` (default: all; one
+        shard's reads on the mesh): simple reads first, then the
+        prefix/suffix row pairs of ends-scan reads, then the fwd + rc
+        chunk rows of reads longer than L.  Row indices are the plan's
+        own; read indices stay the batch's.  In ends mode ``_choose_L``
+        makes L >= min(lmax, W), so only the whole-read scan produces
+        chunk rows."""
         plan = _Plan()
         rows_meta: List[_Row] = []
         simple_reads: List[int] = []
@@ -456,7 +594,9 @@ class TorchDemuxEngine:
         long_reads: List[int] = []
         fwd_cover: Dict[int, List[Tuple[int, int]]] = {}
         ends_cut = max(L, self.ends_window) if self.ends_window else None
-        for ridx in range(len(lens)):
+        if read_indices is None:
+            read_indices = range(len(lens))
+        for ridx in read_indices:
             n = lens[ridx]
             if n == 0:
                 continue
@@ -509,17 +649,19 @@ class TorchDemuxEngine:
 
     def _materialize(
         self, plan, seq_bytes, lens, L: int, R_host_pad: int, S_pad: int,
-        force_nibble: bool = False,
+        force_nibble: bool = False, C_pad: Optional[int] = None,
     ) -> _Mat:
-        """The batch's host arrays: packed rows (``force_nibble``: nibble
+        """The plan's host arrays: packed rows (``force_nibble``: nibble
         rows whatever the batch holds), exceptions, the row descriptors
         the device derives metadata from (plus the packed metadata of
-        the chunk rows), and the full metadata, which the packet
-        assembly reads and the wire-metadata mode uploads."""
+        the chunk rows, ``C_pad`` of them, default the plan's own pow2
+        count), and the full metadata, which the packet assembly reads
+        and the wire-metadata mode uploads."""
         R_total_pad = R_host_pad + S_pad
-        host_packed, row_start, exc, pack_mode = self._pack_host_rows(
-            seq_bytes, plan, R_host_pad, L, force_nibble=force_nibble
-        )
+        with _phase("encode"):
+            host_packed, row_start, exc, pack_mode = self._pack_host_rows(
+                seq_bytes, plan, R_host_pad, L, force_nibble=force_nibble
+            )
 
         meta = np.zeros((R_total_pad, comp.META_COLS), dtype=np.int32)
         meta[:, comp.M_HI] = -1
@@ -646,7 +788,8 @@ class TorchDemuxEngine:
             rowdesc[F : F + n_chunks] = (
                 np.arange(n_chunks, dtype=np.int32) << 2
             ) | 3
-        C_pad = _pow2_at_least(max(n_chunks, 1), 8)
+        if C_pad is None:
+            C_pad = _pow2_at_least(max(n_chunks, 1), 8)
         chunk_meta = np.zeros((C_pad, comp.META_WIRE_COLS), dtype=np.int32)
         if n_chunks:
             chunk_meta[:n_chunks] = comp.pack_meta_np(meta[F : F + n_chunks])
@@ -861,10 +1004,13 @@ class TorchDemuxEngine:
         )
         return gi, gf
 
-    def _group_args(self, gplan: GroupPlan, step: int) -> comp.GroupArgs:
-        """One group's tensors, constants and shapes for the fused call."""
+    def _group_args(self, gplan: GroupPlan, step: int,
+                    device=None) -> comp.GroupArgs:
+        """One group's tensors (its copy on ``device``, default the
+        engine's), constants and shapes for the fused call."""
         gi, gf = self._group_scalars(gplan, step)
-        t = gplan.tensors
+        t = (gplan.tensors if device is None
+             else self._replicas[str(device)][self.plans.index(gplan)])
         return comp.GroupArgs(t.flank, t.patw, t.patterns_all, gi, gf,
                               gplan.m, gplan.k_units, gplan.span, gplan.plen,
                               gplan.barcode_window, gplan.n_patterns)
@@ -886,17 +1032,22 @@ class TorchDemuxEngine:
             return out_np[: cap * comp.REC_COLS].reshape(cap, comp.REC_COLS)
         return comp.unpack_rec_np(out_np, cap, wbits)
 
-    def _call(self, gplans: Sequence[GroupPlan], batch: _DevBatch,
-              H_cap: int) -> np.ndarray:
-        """One device call running ``gplans`` on ``batch`` (the batch
-        prefix once, then each group) and one fetch: the groups' packed
-        outputs, concatenated in order, on the host."""
-        out = comp.demux_call_fused(
-            [self._group_args(g, batch.step) for g in gplans], batch.parts,
+    def _dispatch(self, gplans: Sequence[GroupPlan], batch: _DevBatch,
+                  H_cap: int) -> torch.Tensor:
+        """Enqueue one device call running ``gplans`` on ``batch`` (the
+        batch prefix once, then each group) on the batch's device; its
+        groups' packed outputs, concatenated in order, stay there."""
+        dev = batch.parts["host_packed"].device
+        return comp.demux_call_fused(
+            [self._group_args(g, batch.step, dev) for g in gplans], batch.parts,
             K=self.K, H_cap=H_cap, pack_mode=batch.pack_mode, L_rows=batch.L,
             S_pad=batch.S_pad, ends_w=self.ends_wl, ends_wr=self.ends_wr,
             halo=self.halo, padding=PADDING,
         )
+
+    @staticmethod
+    def _fetch(out: torch.Tensor) -> np.ndarray:
+        """A dispatched call's output on the host (waits for the device)."""
         return out.cpu().numpy()
 
     @staticmethod

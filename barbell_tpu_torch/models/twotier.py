@@ -67,6 +67,7 @@ class TwoTierDemuxEngine:
         )
         self.deep = TorchDemuxEngine(groups, ends_window=plan.deep, **engine_kwargs)
         self.groups = self.shallow.groups
+        self.devices = self.shallow.devices
         self.labels = self.shallow.labels
         self.halo = self.shallow.halo
         W1l, W1r = plan.shallow

@@ -290,8 +290,6 @@ def run_compare(
     from ..stages.kit import KitRunConfig, demux_using_kit
     from .simulate import GROUPS
 
-    if backend == "auto":
-        backend = "torch"
     groups = groups or [
         g for g in GROUPS if os.path.exists(os.path.join(sim_dir, f"{g}.fastq"))
     ]

@@ -1,27 +1,35 @@
 """Annotate stage: stream FASTQ reads through a demux engine to TSV.
 
 Counterpart of :mod:`barbell_tpu.stages.annotate` with the backends
-``torch`` (the batched device pipeline; ``device`` says where it runs)
-and ``oracle`` (the scalar NumPy engine).  There is no automatic
-fallback from one to the other.  The default scan is the whole read
+``torch`` (the batched device pipeline on ``device``; :func:`make_engine`
+also takes the reads mesh ``devices``), ``auto`` (the same) and
+``oracle`` (the scalar NumPy engine).  There is no fallback from one to the other: an engine that
+cannot be built fails the run.  The default scan is the whole read
 (``ends_window`` None, the reference-parity default); each read's rows
 stay contiguous in the output — filter/inspect group by consecutive
 ``read_id`` (reference `src/annotate/annotator.rs:103-119`).
 
-Not ported (raises): multi-host record striping (``shard``) and the
-profiler trace of ``BARBELL_PROFILE_DIR``.
+``config.shard = (rank, world)`` processes the records with
+``stream_index % world == rank`` and writes a ``<out>.idx`` sidecar for
+:func:`~barbell_tpu_torch.parallel.distributed.merge_annotation_shards`.
+``BARBELL_PROFILE_DIR=<dir>`` records a ``torch.profiler`` trace of the
+whole stream (host, and the card's kernels and copies) into ``dir``
+(:func:`profile_trace`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
+import sys
+from collections import deque
 from dataclasses import dataclass
 from typing import List, Optional, Sequence
 
 from ..models.barcodes import BarcodeGroup
 from ..models.demux import Demuxer
 from ..models.hittable import emit_tsv_lines
-from ..models.pipeline import _NOT_PORTED, TorchDemuxEngine, engine_map_batches
+from ..models.pipeline import TorchDemuxEngine, engine_map_batches
 from ..models.records import AnnotationWriter, BarcodeType
 from ..models.twotier import EndsPlan, make_ends_engine
 from ..ops.edit_model import get_edit_cut_off
@@ -29,7 +37,7 @@ from ..utils.fastx import split_fastq_header
 from ..utils.fastx_native import iter_fastq_batches_auto
 from ..utils.progress import ANNOTATE_METRICS, ProgressTracker
 
-BACKENDS = ("torch", "oracle")
+BACKENDS = ("auto", "torch", "oracle")
 
 
 @dataclass
@@ -41,9 +49,10 @@ class AnnotateConfig:
     min_score: float = 0.2
     min_score_diff: float = 0.1
     use_extended: bool = False
-    backend: str = "torch"  # 'torch' | 'oracle'
+    backend: str = "auto"  # 'auto' (= 'torch') | 'torch' | 'oracle'
     batch_size: int = 2048
-    # Multi-host record striping: (rank, world) — not ported.
+    # Multi-host record striping: (rank, world) — this process handles
+    # records with stream_index %% world == rank.
     shard: Optional[tuple] = None
     # Ends-only fast path (SURVEY §5.7): long reads ship only their
     # first/last W bases (full coverage up to W_l+W_r-halo-PADDING-1;
@@ -66,7 +75,8 @@ def _apply_flank_threshold(groups: Sequence[BarcodeGroup], config: AnnotateConfi
     return groups
 
 
-def _torch_engine(groups: Sequence[BarcodeGroup], config: AnnotateConfig, device):
+def _torch_engine(groups: Sequence[BarcodeGroup], config: AnnotateConfig,
+                  device, devices=None):
     """Device engine for the config: plain whole-read or ends scan, or
     the two-tier shallow+rescue engine when ``ends_window`` is an
     :class:`~barbell_tpu_torch.models.twotier.EndsPlan`."""
@@ -75,6 +85,7 @@ def _torch_engine(groups: Sequence[BarcodeGroup], config: AnnotateConfig, device
         min_score=config.min_score,
         min_score_diff=config.min_score_diff,
         device=device,
+        devices=devices,
     )
     ew = config.ends_window
     if isinstance(ew, EndsPlan):
@@ -83,9 +94,9 @@ def _torch_engine(groups: Sequence[BarcodeGroup], config: AnnotateConfig, device
 
 
 def make_engine(groups: Sequence[BarcodeGroup], config: AnnotateConfig,
-                device="cuda"):
-    if config.backend == "torch":
-        return _torch_engine(groups, config, device)
+                device="cuda", devices=None):
+    if config.backend in ("auto", "torch"):
+        return _torch_engine(groups, config, device, devices)
     if config.backend == "oracle":
         return _OracleEngine(groups, config)
     raise ValueError(
@@ -112,6 +123,42 @@ class _OracleEngine:
         ]
 
 
+@contextlib.contextmanager
+def profile_trace(engine, name: str):
+    """``BARBELL_PROFILE_DIR=<dir>``: a torch.profiler trace of the block
+    (CPU activity, and CUDA activity when the engine runs on a card),
+    written as ``<dir>/<name>.<pid>.trace.json`` (Chrome trace format)
+    when the block ends.  A profiler that cannot start, or a trace that
+    cannot be written, costs one line on stderr, not the run."""
+    profile_dir = os.environ.get("BARBELL_PROFILE_DIR")
+    prof = None
+    if profile_dir:
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if any(d.type == "cuda" for d in getattr(engine, "devices", ())):
+            acts.append(ProfilerActivity.CUDA)
+        try:
+            os.makedirs(profile_dir, exist_ok=True)
+            prof = profile(activities=acts)
+            prof.start()
+        except Exception as exc:  # noqa: BLE001 - the trace is optional, the run is not
+            print(f"BARBELL_PROFILE_DIR: profiler did not start ({exc}); "
+                  f"running without a trace", file=sys.stderr)
+            prof = None
+    try:
+        yield
+    finally:
+        if prof is not None:
+            try:
+                prof.stop()
+                prof.export_chrome_trace(os.path.join(
+                    profile_dir, f"{name}.{os.getpid()}.trace.json"))
+            except Exception as exc:  # noqa: BLE001 - as above
+                print(f"BARBELL_PROFILE_DIR: trace not written ({exc})",
+                      file=sys.stderr)
+
+
 def annotate(
     read_files: Sequence[str],
     out_file: str,
@@ -119,13 +166,6 @@ def annotate(
     config: AnnotateConfig,
     device="cuda",
 ) -> None:
-    if config.shard is not None:
-        raise NotImplementedError(
-            f"multi-host record striping (--shard-rank/--shard-world) is "
-            f"{_NOT_PORTED}"
-        )
-    if os.environ.get("BARBELL_PROFILE_DIR"):
-        raise NotImplementedError(f"BARBELL_PROFILE_DIR tracing is {_NOT_PORTED}")
     for i, group in enumerate(query_groups):
         print(f"{group.barcode_type.as_str()}: {i}")
         group.display(5)
@@ -139,10 +179,39 @@ def annotate(
         log_dir=log_dir if config.verbose else None,
     )
 
+    shard = config.shard
+    # Sharded runs also write a ``<out>.idx`` sidecar of
+    # ``stream_index<TAB>n_rows`` per processed read, so the merge can
+    # interleave shards back into the exact single-host read order
+    # (reads with zero annotation rows would otherwise desynchronize a
+    # row-count-based merge).
+    idx_queue: deque = deque()
+
     def batches():
+        if shard is None:
+            for batch in iter_fastq_batches_auto(read_files, config.batch_size):
+                read_ids = [split_fastq_header(h)[0] for h, _s, _q in batch]
+                seqs = [s for _h, s, _q in batch]
+                yield read_ids, seqs
+            return
+        rank, world = shard
+        idx = 0
+        read_ids: list = []
+        seqs: list = []
+        idxs: list = []
         for batch in iter_fastq_batches_auto(read_files, config.batch_size):
-            read_ids = [split_fastq_header(h)[0] for h, _s, _q in batch]
-            seqs = [s for _h, s, _q in batch]
+            for h, s, _q in batch:
+                if idx % world == rank:
+                    read_ids.append(split_fastq_header(h)[0])
+                    seqs.append(s)
+                    idxs.append(idx)
+                    if len(read_ids) >= config.batch_size:
+                        idx_queue.append(idxs)
+                        yield read_ids, seqs
+                        read_ids, seqs, idxs = [], [], []
+                idx += 1
+        if read_ids:
+            idx_queue.append(idxs)
             yield read_ids, seqs
 
     # The device engine yields columnar HitTables (no per-hit Python
@@ -151,27 +220,40 @@ def annotate(
     table_mode = hasattr(engine, "demux_batch_table")
     method = "demux_batch_table" if table_mode else "demux_batch"
 
-    with open(out_file, "w") as fh:
-        writer = AnnotationWriter(fh)
-        for read_ids, _seqs, out in engine_map_batches(
-            engine, batches(), method=method
-        ):
-            if table_mode:
-                writer.write_lines(emit_tsv_lines(out))
-                found = int((out.rows_per_read() > 0).sum())
-            else:
-                rows = []
-                found = 0
-                for matches in out:
-                    if matches:
-                        found += 1
+    sidecar = open(out_file + ".idx", "w") if shard is not None else None
+    try:
+        # the trace covers the whole annotate stream
+        with profile_trace(engine, "annotate"), open(out_file, "w") as fh:
+            writer = AnnotationWriter(fh)
+            for read_ids, _seqs, out in engine_map_batches(
+                engine, batches(), method=method
+            ):
+                if table_mode:
+                    writer.write_lines(emit_tsv_lines(out))
+                    counts = out.rows_per_read().tolist()
+                else:
+                    rows = []
+                    counts = []
+                    for matches in out:
+                        counts.append(len(matches))
                         rows.extend(matches)
-                writer.write_rows(rows)
-            progress.add(0, len(read_ids))
-            progress.add(1, found)
-            progress.add(2, len(read_ids) - found)
-            progress.refresh()
-        writer.finish()
+                    writer.write_rows(rows)
+                found = sum(c > 0 for c in counts)
+                if sidecar is not None:
+                    # one block write per batch (per-read writes are GIL
+                    # time on the pipelined host path)
+                    sidecar.write("".join(
+                        f"{si}\t{c}\n"
+                        for si, c in zip(idx_queue.popleft(), counts)
+                    ))
+                progress.add(0, len(read_ids))
+                progress.add(1, found)
+                progress.add(2, len(read_ids) - found)
+                progress.refresh()
+            writer.finish()
+    finally:
+        if sidecar is not None:
+            sidecar.close()
     progress.finish("records")
 
 

@@ -52,7 +52,7 @@ class KitRunConfig:
     use_extended: bool = False
     alpha: float = 0.4
     gzip: bool = False
-    backend: str = "torch"  # 'torch' | 'oracle'
+    backend: str = "auto"  # 'auto' (= 'torch') | 'torch' | 'oracle'
     batch_size: int = 2048
     # Fused one-pass pipeline (annotate+inspect+filter+trim per batch,
     # byte-identical stage files).  Verbose runs use the staged path so
@@ -330,7 +330,7 @@ def _demux_using_kit_streaming(
     from ..utils.fastx import split_fastq_header, validate_fastq_paths
     from ..utils.fastx_native import iter_fastq_batches_auto
     from ..utils.progress import TRIM_METRICS, ProgressTracker
-    from .annotate import _apply_flank_threshold, make_engine
+    from .annotate import _apply_flank_threshold, make_engine, profile_trace
     from .filter import check_filter_pass
     from .inspect import get_group_structure, print_pattern_summary
     from .kit_columnar import (
@@ -509,62 +509,63 @@ def _demux_using_kit_streaming(
             write_trimmed(results, desc)
 
     try:
-        for ids, seqs, table in engine_map_batches(engine, batches()):
-            descs, quals = meta_queue.popleft()
-            lines = emit_tsv_lines(table)
-            anno_writer.write_lines(lines)
-            seg_start, seg_len = segment_table(table)
-            slabels = labeler.labels(table, seg_start, seg_len)
-            win, passed = cpats.match(table, seg_start, seg_len)
-            seg_start_l = seg_start.tolist()
-            seg_len_l = seg_len.tolist()
-            win_l = win.tolist()
-            passed_l = passed.tolist()
-            tcols = table.cols
-            rsf_l = tcols["rsf"].tolist()
-            ref_l = tcols["ref"].tolist()
-            tlabels = table.labels
-            rowlab_l = [tlabels[k] for k in tcols["label"].tolist()]
-            tplan = batch_trim_plan(cpats, table, seg_start, win, passed)
-            progress.add(TOTAL, len(ids))
-            for i, rid in enumerate(ids):
-                l = seg_len_l[i]
-                if l:
-                    s = seg_start_l[i]
-                    e = s + l
-                    trim = (
-                        (tplan[1][i], tplan[2][i], tplan[3][i])
-                        if tplan is not None and tplan[0][i]
-                        else None
-                    )
-                    member = (
-                        table, s, l, slabels[i], win_l[i], passed_l[i],
-                        lines[s:e], rsf_l[s:e], ref_l[s:e], rowlab_l[s:e],
-                        trim,
-                    )
-                    if rid != pend_id:
-                        flush_run()
-                        pend_id = rid
-                        pend_members = [member]
-                        pend_recs = [(descs[i], seqs[i], quals[i])]
-                    else:
-                        pend_members.append(member)
+        with profile_trace(engine, "kit"):
+            for ids, seqs, table in engine_map_batches(engine, batches()):
+                descs, quals = meta_queue.popleft()
+                lines = emit_tsv_lines(table)
+                anno_writer.write_lines(lines)
+                seg_start, seg_len = segment_table(table)
+                slabels = labeler.labels(table, seg_start, seg_len)
+                win, passed = cpats.match(table, seg_start, seg_len)
+                seg_start_l = seg_start.tolist()
+                seg_len_l = seg_len.tolist()
+                win_l = win.tolist()
+                passed_l = passed.tolist()
+                tcols = table.cols
+                rsf_l = tcols["rsf"].tolist()
+                ref_l = tcols["ref"].tolist()
+                tlabels = table.labels
+                rowlab_l = [tlabels[k] for k in tcols["label"].tolist()]
+                tplan = batch_trim_plan(cpats, table, seg_start, win, passed)
+                progress.add(TOTAL, len(ids))
+                for i, rid in enumerate(ids):
+                    l = seg_len_l[i]
+                    if l:
+                        s = seg_start_l[i]
+                        e = s + l
+                        trim = (
+                            (tplan[1][i], tplan[2][i], tplan[3][i])
+                            if tplan is not None and tplan[0][i]
+                            else None
+                        )
+                        member = (
+                            table, s, l, slabels[i], win_l[i], passed_l[i],
+                            lines[s:e], rsf_l[s:e], ref_l[s:e], rowlab_l[s:e],
+                            trim,
+                        )
+                        if rid != pend_id:
+                            flush_run()
+                            pend_id = rid
+                            pend_members = [member]
+                            pend_recs = [(descs[i], seqs[i], quals[i])]
+                        else:
+                            pend_members.append(member)
+                            pend_recs.append((descs[i], seqs[i], quals[i]))
+                    elif rid == pend_id:
+                        # row-less record of the live run's id: trimmed with
+                        # the run's annotations (the staged trim map does)
                         pend_recs.append((descs[i], seqs[i], quals[i]))
-                elif rid == pend_id:
-                    # row-less record of the live run's id: trimmed with
-                    # the run's annotations (the staged trim map does)
-                    pend_recs.append((descs[i], seqs[i], quals[i]))
-                # else: zero-match read — no annotation rows, so it
-                # neither splits the run nor gets trimmed
-                if len(pend_recs) >= _RUN_CAP:
-                    progress.print_error(
-                        f"warning: read id {pend_id!r} repeats over "
-                        f"{_RUN_CAP} consecutive records; flushing early"
-                    )
-                    flush_run()
-                    pend_id, pend_members, pend_recs = None, [], []
-            drain_bufs()
-            progress.refresh()
+                    # else: zero-match read — no annotation rows, so it
+                    # neither splits the run nor gets trimmed
+                    if len(pend_recs) >= _RUN_CAP:
+                        progress.print_error(
+                            f"warning: read id {pend_id!r} repeats over "
+                            f"{_RUN_CAP} consecutive records; flushing early"
+                        )
+                        flush_run()
+                        pend_id, pend_members, pend_recs = None, [], []
+                drain_bufs()
+                progress.refresh()
         flush_run()
         drain_bufs()
         anno_writer.finish()

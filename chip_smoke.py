@@ -29,7 +29,10 @@ Phases (any failure exits non-zero and prints no result line):
 4. the extended path — the same reads through ``kit --use-extended``
    (two barcode groups, whole-read scan): every batch must be one fused
    device call of both groups (``last_dispatch == "single-fused"``), each
-   on-path kernel launched once per group per call;
+   on-path kernel launched once per group per call; its assigned reads
+   whose barcode differs from the simulator's truth run again on the
+   scalar oracle backend, which must write the same rows (``[kit_extended]
+   misassigned``);
 5. two-group checks on the card — the fused dispatch against the
    per-group dispatch on the extended path's first batch, on reads with
    a mid-read fusion construct and on EXP-PBC096 reads (Ftag + rc Rtag,
@@ -46,7 +49,19 @@ Phases (any failure exits non-zero and prints no result line):
    through the port's ``annotate --kit`` (whole-read scan) and ``kit
    --full-scan``.  16448 = 8 x 2048 + 64: the last batch's hit capacity
    is below 256, so it ranks with the non-split rank form;
-7. kernels at the whole-read paths' and the extended path's shapes,
+7. the reads mesh (``[mesh]``) — ``TorchDemuxEngine(devices=["cuda:0"] *
+   2)`` (and one card a shard where several are visible) on the first two
+   batches of the ends, extended and whole-read paths, equal to the
+   one-device engine, with each kernel launched once per shard and group;
+8. record striping (``[shard]``) — ``annotate --kit --shard-rank r
+   --shard-world 2`` as two processes at once on the card over the
+   whole-read set, merged byte-identical to the one-process run;
+9. tracing (``[profile]``) — one warm pass of the ends, extended and
+   whole-read (``annotate``) paths under ``BARBELL_TIMING`` and
+   ``BARBELL_PROFILE_DIR``: phase report, device busy share, kernel time
+   by name, launches a batch, fetch against dispatch; the TSV equals the
+   untraced pass's;
+10. kernels at the whole-read paths' and the extended path's shapes,
    recorded from their batches (the extended ones with the fusion
    template's flank and patterns), and the Myers kernel on the
    arguments of one full batch of the ends path, the extended path and
@@ -942,14 +957,15 @@ def check_batch_kernels(engine, batches, path: str, seed: int,
 
 class BatchRecorder:
     """Records each device call's row width, row count, hit capacity,
-    group count and the engine's dispatch (the engine's ``_call``, which
-    runs one group or, fused, every group of a batch) while installed."""
+    group count, device and the engine's dispatch (the engine's
+    ``_dispatch``, which runs one group or, fused, every group of a batch
+    on one shard) while installed."""
 
     def __init__(self):
         from barbell_tpu_torch.models.pipeline import TorchDemuxEngine
 
         self.cls = TorchDemuxEngine
-        self.orig = TorchDemuxEngine._call
+        self.orig = TorchDemuxEngine._dispatch
         self.batches = []
 
     def __enter__(self):
@@ -958,14 +974,26 @@ class BatchRecorder:
         def call(eng, gplans, batch, H_cap):
             batches.append({"L": batch.L, "R_total": batch.R_total,
                             "H_cap": H_cap, "groups": len(gplans),
-                            "dispatch": eng.last_dispatch})
+                            "dispatch": eng.last_dispatch,
+                            "device": str(batch.parts["host_packed"].device)})
             return orig(eng, gplans, batch, H_cap)
 
-        self.cls._call = call
+        self.cls._dispatch = call
         return self
 
     def __exit__(self, *exc):
-        self.cls._call = self.orig
+        self.cls._dispatch = self.orig
+
+
+def _launches_of(calls) -> dict:
+    """Each on-path kernel's launches for the recorded device calls: once
+    per group of each call, the rank in its split form when the call's
+    hit capacity is a multiple of 256."""
+    per_call = sum(b["groups"] for b in calls)
+    split = sum(b["groups"] for b in calls if b["H_cap"] % 256 == 0)
+    return {"myers_topk": per_call, "window_valleys": per_call,
+            "window_trace": per_call, "window_interval": per_call,
+            "rank_pass1_split": split, "rank_pass1": per_call - split}
 
 
 class MyersCapture:
@@ -1145,11 +1173,7 @@ def check_extended_launches(batches, launches):
         raise AssertionError("kit_extended: a batch was not one fused call")
     if any(b["groups"] != 1 for b in batches if b not in fused):
         raise AssertionError("kit_extended: a retry call ran more than one group")
-    per_call = sum(b["groups"] for b in batches)
-    split = sum(b["groups"] for b in batches if b["H_cap"] % 256 == 0)
-    want = {"myers_topk": per_call, "window_valleys": per_call,
-            "window_trace": per_call, "window_interval": per_call,
-            "rank_pass1_split": split, "rank_pass1": per_call - split}
+    want = _launches_of(batches)
     got = {k: launches[k] for k in want}
     if got != want:
         raise AssertionError(f"kit_extended launches {got}, want {want}")
@@ -1458,6 +1482,319 @@ def check_compare(d, wrappers) -> None:
         f"scan (mid-read constructs it does not scan), 0 under kit --full-scan")
 
 
+def check_misassigned(reads, d, name="kit_extended") -> None:
+    """The path's assigned reads whose first barcode differs from the
+    simulator's truth: the oracle backend on just those reads must write
+    the torch run's ``annotation.tsv`` rows for them, byte for byte (then
+    the wrong barcode is the reference's own answer, not a port fault)."""
+    from barbell_tpu_torch.sim import write_fastq
+
+    truth = {rid: label for rid, _s, label in reads}
+    first, rows = {}, {}
+    with open(os.path.join(d, name, "annotation.tsv")) as fh:
+        header = next(fh)
+        for line in fh:
+            f = line.split("\t")
+            rows.setdefault(f[0], []).append(line)
+            if f[9] == "Ftag" and f[0] not in first:
+                first[f[0]] = f[12]
+    bad = {rid for rid, label in first.items() if truth[rid] != label}
+    if not bad:
+        log(f"[{name}] misassigned: none of {len(first)} assigned reads")
+        return
+    sub = [r for r in reads if r[0] in bad]
+    fq = os.path.join(d, f"{name}_mis.fastq")
+    write_fastq(fq, sub)
+    out = os.path.join(d, f"{name}_mis_oracle")
+    t0 = time.perf_counter()
+    with _quiet(d, f"{name}_mis"):
+        PATHS[name](fq, out, "oracle")
+    with open(os.path.join(out, "annotation.tsv")) as fh:
+        oracle_rows = fh.read()
+    torch_rows = header + "".join(line for rid, _s, _l in sub for line in rows[rid])
+    desc = ", ".join(f"{rid} (truth {truth[rid]}, assigned {first[rid]})"
+                     for rid, _s, _l in sub)
+    verdict = ("the oracle backend writes the same rows: the reference's own "
+               "answer" if oracle_rows == torch_rows else
+               "the oracle backend's rows DIFFER: a port fault")
+    log(f"[{name}] misassigned: {len(sub)} of {len(first)} assigned reads: "
+        f"{desc}; {verdict} ({time.perf_counter() - t0:.1f}s)")
+    if oracle_rows != torch_rows:
+        raise AssertionError(f"{name}: misassigned reads' rows differ from the oracle's")
+
+
+def check_mesh(ends_reads, whole_reads, wrappers, smi) -> None:
+    """The reads mesh on the card: ``devices=["cuda:0"] * 2`` (and one
+    card a shard where more than one is visible) against the one-device
+    engine on the first two batches of the ends path (the kit's two-tier
+    ends plan), the extended path (two groups: ``sharded-fused``) and the
+    whole-read path (chunk rows): equal tables, the dispatch, each on-path
+    kernel launched once per shard and group of every call (and retry),
+    and each engine's wall ms a batch.  Two shards on one card are a
+    correctness run: they cannot show a multi-card speed."""
+    from barbell_tpu_torch.models.pipeline import TorchDemuxEngine
+    from barbell_tpu_torch.models.twotier import make_ends_engine
+    from barbell_tpu_torch.stages.kit import kit_groups, kit_plan
+
+    plan = kit_plan(KIT)
+    paths = (
+        ("ends", lambda **kw: make_ends_engine(kit_groups(KIT), plan, **kw),
+         ends_reads, "sharded"),
+        ("extended", lambda **kw: TorchDemuxEngine(
+            kit_groups(KIT, use_extended=True), **kw), ends_reads, "sharded-fused"),
+        ("whole-read", lambda **kw: TorchDemuxEngine(kit_groups(KIT), **kw),
+         whole_reads, "sharded"),
+    )
+    meshes = [["cuda:0"] * 2]
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        meshes.append([f"cuda:{i}" for i in range(n_cards)])
+    else:
+        log("[mesh] one card visible: the case of one distinct card a shard "
+            "was not run")
+    for name, make, reads, dispatch in paths:
+        batches = [([r for r, _s, _l in reads[i : i + BATCH]],
+                    [s for _r, s, _l in reads[i : i + BATCH]])
+                   for i in (0, BATCH)]
+        one = make(devices=["cuda:0"])
+        want = [one.demux_batch_table(*b) for b in batches]
+        one_ms = _wall_ms(lambda: [one.demux_batch_table(*b) for b in batches],
+                          reps=2) / len(batches)
+        for devices in meshes:
+            eng = make(devices=devices)
+            for w in wrappers:
+                w.launches = 0
+            with BatchRecorder() as rec:
+                got = [eng.demux_batch_table(*b) for b in batches]
+                torch.cuda.synchronize()
+            launches = {w.__name__: w.launches for w in wrappers}
+            what = f"[mesh] {name} on {devices}"
+            for i, (g, w) in enumerate(zip(got, want)):
+                _tables_equal(g, w, f"{what}, batch {i}")
+            if eng.last_dispatch != dispatch:
+                raise AssertionError(f"{what}: dispatch {eng.last_dispatch}")
+            calls = [b for b in rec.batches if b["dispatch"] == dispatch]
+            shards = {}
+            for b in calls:
+                shards[b["device"]] = shards.get(b["device"], 0) + 1
+            expect = _launches_of(rec.batches)
+            if {k: launches[k] for k in expect} != expect:
+                raise AssertionError(f"{what}: launches {launches}, want {expect}")
+            mesh_ms = _wall_ms(lambda: [eng.demux_batch_table(*b) for b in batches],
+                               reps=2) / len(batches)
+            per_batch = {k: v / len(batches) for k, v in expect.items() if v}
+            log(f"{what}: {len(batches)} batches of {BATCH} reads, tables = "
+                f"one-device engine's ({sum(t.n_rows for t in got)} rows); "
+                f"{eng.last_dispatch}, {len(rec.batches)} device calls "
+                f"({len(calls)} {dispatch}, by device {shards}); launches a "
+                f"batch {per_batch} = once per shard and group of every call; "
+                f"wall ms a batch: one device {one_ms:.1f}, mesh {mesh_ms:.1f} "
+                f"(a correctness run, not a multi-card speed; {smi})")
+
+
+def check_shard(fq, d, smi) -> None:
+    """``annotate --kit KIT --shard-rank r --shard-world 2`` as two
+    processes at once on the one card over the whole-read set; their
+    shards merge to the one-process run's ``annotation.tsv`` byte for
+    byte."""
+    import barbell_tpu_torch
+    from barbell_tpu_torch.parallel.distributed import merge_annotation_shards
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(barbell_tpu_torch.__file__)))
+    out_dir = os.path.join(d, "shard")
+    os.makedirs(out_dir)
+    out = os.path.join(out_dir, "annotation.tsv")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (root, env.get("PYTHONPATH")) if p)
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for rank in range(2):
+            fh = open(os.path.join(out_dir, f"rank{rank}.log"), "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, "-m", "barbell_tpu_torch", "annotate", "-i", fq,
+                 "-o", out, "--kit", KIT, "--shard-rank", str(rank),
+                 "--shard-world", "2"],
+                stdout=fh, stderr=subprocess.STDOUT, env=env, cwd=root), fh))
+        rcs = [p.wait(timeout=600) for p, _fh in procs]
+    finally:
+        for p, fh in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            fh.close()
+    dt = time.perf_counter() - t0
+    if rcs != [0, 0]:
+        tails = [Path(out_dir, f"rank{r}.log").read_text()[-2000:] for r in range(2)]
+        raise AssertionError(f"[shard] ranks exited {rcs}: {tails}")
+    sizes = [os.path.getsize(os.path.join(out_dir, f"annotation.shard-{r}.tsv"))
+             for r in range(2)]
+    merge_annotation_shards(out, 2)
+    with open(out, "rb") as a, open(os.path.join(d, "annotate", "annotation.tsv"), "rb") as b:
+        merged, single = a.read(), b.read()
+    if merged != single:
+        raise AssertionError("[shard] merged shards differ from the one-process run")
+    log(f"[shard] annotate --kit {KIT} --shard-rank 0/1 --shard-world 2: two "
+        f"processes at once on one card in {dt:.1f}s (process start, kernel "
+        f"load and FASTQ parsing of the whole set in each); shards of {sizes} "
+        f"bytes merge to the one-process annotation.tsv byte for byte "
+        f"({len(merged)} bytes; {smi})")
+
+
+def _trace_device_time(path):
+    """(union ms of the card's kernel, copy and set intervals, {kernel
+    name: (calls, ms)}, copy ms, {CUDA runtime call: (calls, host ms)})
+    from a torch.profiler Chrome trace; raises if it holds no device
+    event."""
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    spans, kernels, copy_ms, runtime = [], {}, 0.0, {}
+    for e in events:
+        cat = e.get("cat")
+        if e.get("ph") != "X":
+            continue
+        dur = float(e.get("dur", 0))
+        if cat == "cuda_runtime":
+            n, ms = runtime.get(e["name"], (0, 0.0))
+            runtime[e["name"]] = (n + 1, ms + dur / 1000)
+        if cat not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        ts = float(e["ts"])
+        spans.append((ts, ts + dur))
+        if cat == "kernel":
+            name = e["name"].replace("void ", "").replace("(anonymous namespace)::", "")
+            name = re.split(r"[<(]", name, 1)[0]
+            n, ms = kernels.get(name, (0, 0.0))
+            kernels[name] = (n + 1, ms + dur / 1000)
+        else:
+            copy_ms += dur / 1000
+    if not spans:
+        raise AssertionError(f"{path}: the trace holds no device event")
+    spans.sort()
+    busy, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy += hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    busy += hi - lo
+    return busy / 1000, kernels, copy_ms, runtime
+
+
+def _sync_points(engine, batch) -> dict:
+    """{file:line: count} of the lines where one batch through ``engine``
+    made the host wait for the card (torch's sync debug mode)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    found = {}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            engine.demux_batch_table(*batch)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            where = f"{os.path.basename(w.filename)}:{w.lineno}"
+            found[where] = found.get(where, 0) + 1
+    return found
+
+
+def check_profile(fq_ends, fq_whole, d, wrappers, smi, batches) -> None:
+    """One warm pass each of the ends (``kit``), extended (``kit
+    --use-extended``) and whole-read (``annotate --kit``) paths under
+    ``BARBELL_TIMING`` and ``BARBELL_PROFILE_DIR``: the trace is written
+    and the TSV equals the untraced pass's; prints the phase report, the
+    device busy share (the union of the trace's kernel and copy intervals
+    over the pass's wall time, under the profiler), the kernel time by
+    name, the launches a batch, the fetch against the dispatch and the
+    host time in CUDA runtime calls; then where one ends and one
+    whole-read batch (``batches``) make the host wait for the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from barbell_tpu_torch.models import pipeline
+    from barbell_tpu_torch.models.pipeline import TorchDemuxEngine
+    from barbell_tpu_torch.models.twotier import make_ends_engine
+    from barbell_tpu_torch.stages.kit import kit_groups, kit_plan
+
+    # the profiler's first start (CUPTI's) takes seconds: outside the passes
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+    log(f"[profile] profiler warm-up {time.perf_counter() - t0:.1f}s")
+    pipeline._TIMING = True
+    try:
+        for name, fq, n_reads in (("kit", fq_ends, N_ENDS),
+                                  ("kit_extended", fq_ends, N_ENDS),
+                                  ("annotate", fq_whole, N_WHOLE)):
+            pdir = os.path.join(d, f"profile_{name}")
+            out = os.path.join(d, f"{name}_profiled")
+            pipeline.TIMINGS.clear()
+            for w in wrappers:
+                w.launches = 0
+            os.environ["BARBELL_PROFILE_DIR"] = pdir
+            try:
+                with _quiet(d, f"{name}_profiled"):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    PATHS[name](fq, out, "torch")
+                    torch.cuda.synchronize()
+                    wall_ms = (time.perf_counter() - t0) * 1000
+            finally:
+                del os.environ["BARBELL_PROFILE_DIR"]
+            launches = {w.__name__: w.launches for w in wrappers}
+            traces = sorted(Path(pdir).glob("*.trace.json"))
+            if len(traces) != 1:
+                raise AssertionError(f"[profile] {name}: traces {traces}")
+            with open(os.path.join(out, "annotation.tsv"), "rb") as a, \
+                    open(os.path.join(d, name, "annotation.tsv"), "rb") as b:
+                if a.read() != b.read():
+                    raise AssertionError(f"[profile] {name}: TSV differs from "
+                                         f"the untraced pass's")
+            busy_ms, kernels, copy_ms, runtime = _trace_device_time(traces[0])
+            n_batches = -(-n_reads // BATCH)
+            t = pipeline.TIMINGS
+            disp, fetch = t["demux_call.dispatch"], t["demux_call.fetch"]
+            top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:12]
+            log(f"[profile] {name}: {n_reads} reads, {n_batches} batches, wall "
+                f"{wall_ms:.1f} ms under the profiler; trace "
+                f"{traces[0].name} ({traces[0].stat().st_size} bytes); TSV = "
+                f"untraced pass's; {smi}")
+            log(f"[profile] {name}: phases (seconds summed over "
+                f"{pipeline.DEFAULT_PIPELINE_DEPTH} worker threads):\n"
+                f"{pipeline.timing_report()}")
+            log(f"[profile] {name}: device busy {busy_ms:.2f} ms of {wall_ms:.1f} "
+                f"= {100 * busy_ms / wall_ms:.2f}% (kernels "
+                f"{sum(ms for _n, ms in kernels.values()):.2f} ms in "
+                f"{sum(n for n, _ms in kernels.values())} launches, copies and "
+                f"sets {copy_ms:.2f} ms)")
+            log(f"[profile] {name}: kernel time by name (calls, ms): "
+                + "; ".join(f"{k} ({n}, {ms:.3f})" for k, (n, ms) in top))
+            log(f"[profile] {name}: port kernel launches a batch "
+                f"{ {k: round(v / n_batches, 2) for k, v in launches.items() if v} }")
+            log(f"[profile] {name}: demux_call.fetch {fetch[0] * 1000:.1f} ms "
+                f"(n={fetch[1]}) against demux_call.dispatch {disp[0] * 1000:.1f} "
+                f"ms (n={disp[1]}): {fetch[0] / max(disp[0], 1e-9):.2f}x")
+            top_rt = sorted(runtime.items(), key=lambda kv: -kv[1][1])[:6]
+            log(f"[profile] {name}: host time in CUDA runtime calls (calls, "
+                f"ms, summed over threads): "
+                + "; ".join(f"{k} ({n}, {ms:.1f})" for k, (n, ms) in top_rt))
+    finally:
+        pipeline._TIMING = False
+        pipeline.TIMINGS.clear()
+    for name, eng, batch in (
+            ("ends", make_ends_engine(kit_groups(KIT), kit_plan(KIT), device="cuda"),
+             batches[0]),
+            ("whole-read", TorchDemuxEngine(kit_groups(KIT), device="cuda"), batches[1])):
+        eng.demux_batch_table(*batch)
+        log(f"[profile] one {name} batch: the host waits for the card at "
+            f"{_sync_points(eng, batch)} (file:line: times)")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -1541,6 +1878,7 @@ def main() -> int:
                          on_path, smi)
             check_extended_launches(ext_batches, by_path["kit_extended"])
             oracle_parity("kit_extended", ends_reads, d, oracle_jobs["kit_extended"])
+            check_misassigned(ends_reads, d)
         with timed("fused"):
             check_fused(ends_reads, wrappers, smi, pool)
         with timed("host forms"):
@@ -1560,6 +1898,14 @@ def main() -> int:
                     captured["whole-read (captured)"] = args
                 whole_batches += batches
                 oracle_parity(name, whole_reads, d, oracle_jobs[name])
+        with timed("mesh"):
+            check_mesh(ends_reads, whole_reads, wrappers, smi)
+        with timed("shard"):
+            check_shard(fq_whole, d, smi)
+        with timed("profile"):
+            check_profile(fq_ends, fq_whole, d, wrappers, smi, [
+                ([r for r, _s, _l in reads[:BATCH]], [s for _r, s, _l in reads[:BATCH]])
+                for reads in (ends_reads, whole_reads)])
 
     with timed("whole-read kernels"):
         kernels += check_batch_kernels(engine, whole_batches, "whole-read", SEED + 2)

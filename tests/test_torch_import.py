@@ -1,9 +1,10 @@
 """The port imports neither jax nor the JAX package: every
-barbell_tpu_torch module imports (``sim.compare`` and ``sim.ingest``
-among them), one CPU engine batch runs in each scan mode, and the
-command line runs ``annotate`` and ``filter``, in a process where
-importing ``jax`` or ``barbell_tpu`` fails; the chip script imports
-neither; and the port's command line runs its kit path."""
+barbell_tpu_torch module imports (``sim.compare``, ``sim.ingest`` and
+``parallel.{mesh,distributed}`` among them), one CPU engine batch runs
+in each scan mode and on a two-device mesh, and the command line runs
+``annotate`` and ``filter``, in a process where importing ``jax`` or
+``barbell_tpu`` fails; the chip script imports neither; and the port's
+command line runs its kit path."""
 
 import ast
 import os
@@ -24,9 +25,13 @@ sys.modules["barbell_tpu"] = None  # and so does the JAX package
 import barbell_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(
     barbell_tpu_torch.__path__, "barbell_tpu_torch.")]
-assert {"barbell_tpu_torch.sim.compare", "barbell_tpu_torch.sim.ingest"} <= set(names)
+assert {"barbell_tpu_torch.sim.compare", "barbell_tpu_torch.sim.ingest",
+        "barbell_tpu_torch.parallel.mesh",
+        "barbell_tpu_torch.parallel.distributed"} <= set(names)
 for name in names:
     importlib.import_module(name)
+from barbell_tpu_torch.parallel.distributed import initialize
+assert initialize() == (0, 1)  # no coordinator: one process
 import chip_smoke  # the chip script imports neither
 
 from barbell_tpu_torch import cli
@@ -49,6 +54,9 @@ for ends in ((256, 256), None):  # ends scan, whole-read scan (chunk rows)
                               device="cpu")
     rows.append(engine.demux_batch_table(["r0"], [read]).n_rows)
 assert min(rows) >= 1, rows
+mesh = TorchDemuxEngine(groups, max_row_len=256, devices=["cpu"] * 2)
+assert mesh.demux_batch_table(["r0", "r1"], [read, read]).n_rows == 2 * rows[1]
+assert mesh.last_dispatch == "sharded"
 
 d = tempfile.mkdtemp()
 fq, tsv, pat, qf = (os.path.join(d, f)
@@ -79,7 +87,7 @@ def test_port_imports_and_runs_without_jax():
     )
     assert res.returncode == 0, res.stdout + res.stderr
     n_modules = int(res.stdout.split("MODULES")[1].split()[0])
-    assert n_modules >= 37
+    assert n_modules >= 40
 
 
 def test_chip_smoke_imports_only_the_port():
@@ -125,12 +133,11 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
         assert '"ok"' not in res.stdout
 
 
-def test_cli_kit_oracle_delegation_and_not_ported(tmp_path, capsys,
-                                                 monkeypatch):
+def test_cli_kit_oracle_delegation_and_profile_trace(tmp_path, monkeypatch):
     """The port's ``kit`` on the oracle backend writes the JAX CLI's
     stage files; its host commands run; a command missing its inputs
-    exits 1; what is not ported (``BARBELL_PROFILE_DIR`` tracing) exits
-    2."""
+    exits 1; ``annotate`` under ``BARBELL_PROFILE_DIR`` exits 0 and
+    writes a trace into that directory."""
     from barbell_tpu import cli as reference_cli
     from barbell_tpu.sim.simulate import default_barcodes, rapid_adapter
     from barbell_tpu_torch.cli import main
@@ -151,8 +158,8 @@ def test_cli_kit_oracle_delegation_and_not_ported(tmp_path, capsys,
     assert main(["kits"]) == 0
     assert main(["annotate", "-i", str(fq)]) == 1  # needs --kit or -q
     assert main(["compare", "--sim-dir", "x"]) == 1  # needs -o
-    capsys.readouterr()
     monkeypatch.setenv("BARBELL_PROFILE_DIR", str(tmp_path / "trace"))
     assert main(["annotate", "-i", str(fq), "--kit", "SQK-RBK114-96",
-                 "--backend", "oracle"]) == 2
-    assert "not ported yet" in capsys.readouterr().out
+                 "-o", str(tmp_path / "a.tsv"), "--backend", "oracle"]) == 0
+    assert [p.name.endswith(".trace.json")
+            for p in (tmp_path / "trace").iterdir()] == [True]
