@@ -21,14 +21,20 @@ read's end positions, so chunked results equal whole-read results.
 
 The batch's host form follows the JAX engine's rules: concatenated
 2-bit codes (pack mode 2) when the native IO library is there and the
-batch carries at most 4096 non-ACGT bytes, nibble rows (pack mode 0)
+batch carries at most 4096 non-ACGT bytes, padded 2-bit rows (pack mode
+1) instead under ``BARBELL_PACK_MODE=1``, nibble rows (pack mode 0)
 otherwise or under ``BARBELL_PACK_MODE=0``; metadata derived on the
 device from the row descriptors (``meta_mode='desc'``) for pack mode 2
-and reads under 2**29 bases, uploaded (``'wire'``) otherwise or under
-``BARBELL_META_MODE=wire``.  A kit with several barcode groups (``kit
---use-extended``, the two-group PCR and cDNA kits) runs every group in
-one device call per batch with one fetch (``last_dispatch ==
-"single-fused"``).
+and reads under 2**29 bases (on the mesh only with the one-blob
+upload), uploaded (``'wire'``) otherwise or under
+``BARBELL_META_MODE=wire``.  Each shard's arrays ride ONE uint8 blob
+and one host-to-device copy (``mono_upload``, default on;
+``BARBELL_MONO_UPLOAD=0`` uploads them one by one).  A kit with several
+barcode groups (``kit --use-extended``, the two-group PCR and cDNA
+kits) runs every group in one device call per batch with one fetch
+(``last_dispatch == "single-fused"``) when the batch rides the blob,
+and one call per group otherwise.  Row counts pad to powers of two, or
+to 1/8-octave buckets under ``fine_rows`` (``BARBELL_FINE_ROWS=1``).
 
 With more than one device (``devices``; :mod:`~barbell_tpu_torch.parallel.mesh`)
 each batch's reads split into one row block per device, balanced by row
@@ -42,8 +48,6 @@ groups); the blocks' hit records merge group-major, block-minor.
 :data:`TIMINGS` (:func:`timing_report`): ``encode``, ``pack_upload``,
 ``demux_call.dispatch`` (enqueue of the fused call), ``demux_call.fetch``
 (the synchronous copy back) and ``assemble.host``.
-
-Not ported here: the padded 2-bit pack mode 1.
 """
 
 from __future__ import annotations
@@ -72,7 +76,7 @@ from .demux import COLLAPSE_OVERLAP, Demuxer
 from ..parallel.mesh import resolve_devices
 from .groups import GroupPlan, group_tensors_from_numpy
 from .hittable import HitTable
-from .records import Strand
+from .records import BarbellMatch, Strand
 
 MAX_ROW_LEN = 8192  # chunk width for long reads
 MAX_HITS_PER_ROW = 16  # K for valley compaction
@@ -147,6 +151,27 @@ def _pow2_at_least(x: int, lo: int = 8) -> int:
     return n
 
 
+def _mantissa_bucket(x: int, lo: int) -> int:
+    """Smallest m * 2**e >= x with m in [8, 16]: 1/8-octave buckets
+    bound the padding at 12.5% where a power of two wastes up to 2x.
+    Results for x > lo are multiples of 2**(bit_length(x - 1) - 4)."""
+    if x <= lo:
+        return lo
+    e = (x - 1).bit_length() - 4
+    return (-(-x >> e)) << e
+
+
+#: row-count buckets: powers of two, or 1/8-octave buckets
+#: (BARBELL_FINE_ROWS=1; less padded device work a batch)
+_FINE_ROWS = os.environ.get("BARBELL_FINE_ROWS", "0") == "1"
+
+
+def _row_bucket(x: int, lo: int = 8, fine: Optional[bool] = None) -> int:
+    if _FINE_ROWS if fine is None else fine:
+        return _mantissa_bucket(x, lo)
+    return _pow2_at_least(x, lo)
+
+
 def _retry_cap(total: int, h_cap: int) -> int:
     """Overflow-retry hit capacity: the measured total + 12.5% slack at a
     256-granule (strand-split rank lanes), strictly above the failed cap."""
@@ -204,11 +229,13 @@ class _Mat:
 
 @dataclass
 class _DevBatch:
-    """One batch's uploaded arrays (``parts``, named as
-    :func:`~barbell_tpu_torch.ops.composite.batch_rows` reads them) and
-    the shapes every group's call on it shares."""
+    """One shard's uploaded arrays (``parts``, named as
+    :func:`~barbell_tpu_torch.ops.composite.batch_rows` reads them: views
+    of one uploaded blob, or one upload each), the device they are on,
+    and the shapes every group's call on them shares."""
 
     parts: Dict[str, torch.Tensor]
+    device: torch.device
     pack_mode: int
     L: int
     step: int
@@ -226,7 +253,14 @@ class TorchDemuxEngine:
     when given, a one-read batch runs on its first entry);
     ``meta_mode`` (default: ``BARBELL_META_MODE``, else ``'desc'``)
     ``'wire'`` uploads every batch's metadata instead of deriving it on
-    the device."""
+    the device.  As in the JAX engine: ``max_hits_per_row`` is K, the
+    valleys a row keeps; ``fine_rows`` (default ``BARBELL_FINE_ROWS``,
+    off) pads row counts to 1/8-octave buckets instead of powers of two;
+    ``mono_upload`` (default ``BARBELL_MONO_UPLOAD``, on) ships each
+    shard's arrays as one blob; ``cat_align`` (default
+    ``BARBELL_CAT_ALIGN``, else 64) is the concatenated rows' byte
+    alignment.  The three switches are attributes, settable between
+    batches."""
 
     def __init__(
         self,
@@ -239,6 +273,10 @@ class TorchDemuxEngine:
         device="cuda",
         meta_mode: Optional[str] = None,  # 'desc' | 'wire'
         devices: Optional[Sequence] = None,
+        max_hits_per_row: int = MAX_HITS_PER_ROW,
+        fine_rows: Optional[bool] = None,
+        mono_upload: Optional[bool] = None,
+        cat_align: Optional[int] = None,
     ):
         self.devices = resolve_devices(device, devices)
         self.device = self.devices[0] if devices is not None else torch.device(device)
@@ -253,12 +291,27 @@ class TorchDemuxEngine:
         if meta_mode not in ("wire", "desc"):
             raise ValueError(f"meta_mode must be 'wire' or 'desc', got {meta_mode!r}")
         self.meta_mode = meta_mode
+        #: one uint8 blob and one host-to-device copy a shard a batch;
+        #: False uploads each array on its own
+        self.mono_upload = (
+            os.environ.get("BARBELL_MONO_UPLOAD", "1") != "0"
+            if mono_upload is None else bool(mono_upload)
+        )
+        #: 1/8-octave row-count buckets instead of powers of two
+        self.fine_rows = _FINE_ROWS if fine_rows is None else bool(fine_rows)
+        if cat_align is None:
+            cat_align = int(os.environ.get("BARBELL_CAT_ALIGN", str(comp.CAT_ALIGN)))
+        if cat_align not in (16, 32, 64, 128):
+            raise ValueError(f"cat_align must be one of 16/32/64/128, got {cat_align}")
+        #: byte alignment of the concatenated rows' starts
+        self.cat_align = cat_align
         #: False dispatches each group of a batch on its own: the
         #: per-group path the fused call is held equal to
         self.fuse_groups = True
         #: the last batch's dispatch: "single-fused" (every group in one
-        #: device call) or "single" (a call per group); "sharded-fused"
-        #: or "sharded" when the batch was split over the mesh
+        #: device call, on the one-blob upload) or "single" (a call per
+        #: group); "sharded-fused" or "sharded" when the batch was split
+        #: over the mesh
         self.last_dispatch: Optional[str] = None
         self.groups = list(groups)
         self.alpha = float(alpha)
@@ -273,7 +326,7 @@ class TorchDemuxEngine:
                 f"max_row_len must be a positive multiple of 4, got {max_row_len}"
             )
         self.max_row_len = max_row_len
-        self.K = MAX_HITS_PER_ROW
+        self.K = int(max_hits_per_row)
         self.plans = [GroupPlan(g, self.device) for g in self.groups]
         # the groups' query tensors on every device of the mesh, by the
         # device their tensors land on ("cuda" names the current card)
@@ -367,6 +420,13 @@ class TorchDemuxEngine:
             self._fallback = d
         return self._fallback
 
+    def demux_batch(
+        self, read_ids: List[str], seqs: List[bytes]
+    ) -> List[List[BarbellMatch]]:
+        """Per-read ``BarbellMatch`` lists (the object API): the rows of
+        :meth:`demux_batch_table`, equal to the scalar engine's."""
+        return hittable.table_to_matches(self.demux_batch_table(read_ids, seqs))
+
     def demux_batch_table(
         self, read_ids: List[str], seqs: List[bytes]
     ) -> HitTable:
@@ -389,9 +449,10 @@ class TorchDemuxEngine:
                    else [range(B)])
         plans = [self._plan(lens, L, step, bucket) for bucket in buckets]
         # every shard pads to the same shapes
-        R_host_pad = _pow2_at_least(max(max(p.R_host for p in plans), 1), 8)
-        S_pad = _pow2_at_least(max(max(p.F for p in plans), 1), 8)
-        C_pad = _pow2_at_least(max(max(len(p.rows_meta) for p in plans), 1), 8)
+        fine = self.fine_rows
+        R_host_pad = _row_bucket(max(max(p.R_host for p in plans), 1), 8, fine)
+        S_pad = _row_bucket(max(max(p.F for p in plans), 1), 8, fine)
+        C_pad = _row_bucket(max(max(len(p.rows_meta) for p in plans), 1), 8, fine)
         R_total_pad = R_host_pad + S_pad
         # flat row indexing is int32: split oversized batches
         if R_total_pad * L >= 2**31:
@@ -412,12 +473,14 @@ class TorchDemuxEngine:
                                       force_nibble=True, C_pad=C_pad)
                     for p in plans]
         # descriptor metadata needs the 2-bit codes, and the descriptor
-        # packs read lengths in 29 bits
+        # packs read lengths in 29 bits; on the mesh it rides the blob
+        # only, as in the reference
+        mono = self.mono_upload
         desc = (self.meta_mode == "desc" and mats[0].pack_mode == 2
-                and int(lens.max()) < 1 << 29)
+                and int(lens.max()) < 1 << 29 and (mono or not sharded))
         with _phase("pack_upload"):
-            batches = [self._upload(m, desc, dev, L, step, R_host_pad, S_pad)
-                       for m, dev in zip(mats, devices)]
+            batches = self._upload(mats, desc, mono, devices, L, step,
+                                   R_host_pad, S_pad)
 
         packets: List[tuple] = []  # (GroupPlan, packet dict), group-major
         overflow_reads: set = set()
@@ -426,8 +489,9 @@ class TorchDemuxEngine:
         nw = _over_words(R_total_pad)
         mode = "sharded" if sharded else "single"
         # every shard's call is enqueued before any is fetched
-        if len(self.plans) > 1 and self.fuse_groups:
-            # every group in one device call and one fetch a shard
+        if len(self.plans) > 1 and self.fuse_groups and mono:
+            # every group in one device call and one fetch a shard (on
+            # the blob, as the reference does)
             self.last_dispatch = mode + "-fused"
             with _phase("demux_call.dispatch"):
                 outs = [self._dispatch(self.plans, bt, H_cap) for bt in batches]
@@ -478,29 +542,49 @@ class TorchDemuxEngine:
             return self._finish_table(read_ids, seqs, lens, packets,
                                       overflow_reads)
 
-    def _upload(self, mat, desc: bool, device, L: int, step: int,
-                R_host_pad: int, S_pad: int) -> _DevBatch:
-        """One shard's host arrays on ``device``: the descriptor form
-        (``desc``) or the uploaded metadata."""
-        exc = mat.exc
+    def _upload(self, mats, desc: bool, mono: bool, devices, L: int,
+                step: int, R_host_pad: int, S_pad: int) -> List[_DevBatch]:
+        """Every shard's host arrays on its device: the descriptor form
+        (``desc``) or the uploaded metadata; with ``mono`` one uint8 blob
+        a shard (a [D, blob] host array, row d to shard d's device, one
+        copy each; the parts are views of it), else one copy an array."""
         # entries fill the exception list in order: a sentinel at index
-        # 64 means <= 64 real entries, so upload only that prefix
-        if exc.shape[0] > 64 and exc[64, 0] == R_host_pad * L:
-            exc = exc[:64]
-        if desc:
-            parts = dict(host_packed=mat.host_packed, rowdesc=mat.rowdesc,
-                         chunk_meta=mat.chunk_meta, exc=exc)
+        # 64 means <= 64 real entries, so upload only that prefix (on
+        # every shard or none: the blob layout is the same on each)
+        sentinel = R_host_pad * L
+        if all(m.exc.shape[0] > 64 and m.exc[64, 0] == sentinel for m in mats):
+            excs = [m.exc[:64] for m in mats]
         else:
-            parts = dict(host_packed=mat.host_packed,
-                         meta=comp.pack_meta_np(mat.meta),
-                         simple_idx=mat.simple_idx, exc=exc,
-                         row_start=mat.row_start)
-        return _DevBatch(
-            parts={k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-                   for k, v in parts.items()},
-            pack_mode=mat.pack_mode, L=L, step=step, S_pad=S_pad,
-            R_total=R_host_pad + S_pad,
-        )
+            excs = [m.exc for m in mats]
+        host = [m.host_packed for m in mats]
+        if mono and mats[0].pack_mode == 2:
+            # the shards' flat code buffers pad to one length
+            t_pad = max(h.shape[0] for h in host)
+            host = [np.concatenate([h, np.zeros(t_pad - h.shape[0], np.uint8)])
+                    if h.shape[0] < t_pad else h for h in host]
+        if desc:
+            arrays = [dict(host_packed=h, rowdesc=m.rowdesc,
+                           chunk_meta=m.chunk_meta, exc=e)
+                      for h, m, e in zip(host, mats, excs)]
+        else:
+            arrays = [dict(host_packed=h, meta=comp.pack_meta_np(m.meta),
+                           simple_idx=m.simple_idx, exc=e, row_start=m.row_start)
+                      for h, m, e in zip(host, mats, excs)]
+        if mono:
+            built = [comp.build_blob_named(*a.items()) for a in arrays]
+            spans = built[0][1]
+            blobs = torch.from_numpy(np.stack([b for b, _spans in built]))
+            parts = [comp._blob_parts(blobs[d].to(dev), spans)
+                     for d, dev in enumerate(devices)]
+        else:
+            parts = [{k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                      for k, v in a.items()} for a, dev in zip(arrays, devices)]
+        return [
+            _DevBatch(parts=p, device=p["host_packed"].device,
+                      pack_mode=m.pack_mode, L=L, step=step, S_pad=S_pad,
+                      R_total=R_host_pad + S_pad)
+            for p, m in zip(parts, mats)
+        ]
 
     def _partition_reads(self, lens, L: int, step: int, D: int):
         """Greedy balanced assignment of whole reads to D shards by row
@@ -562,8 +646,9 @@ class TorchDemuxEngine:
             n_simple = int(n.size - long_lens.size)
             nchunks = 1 + (long_lens - L + step - 1) // step
             rows_long = int(2 * nchunks.sum())
-            R_host_pad = _pow2_at_least(max(n_simple + rows_long, 1), 8)
-            S_pad = _pow2_at_least(max(n_simple, 1), 8)
+            R_host_pad = _row_bucket(max(n_simple + rows_long, 1), 8,
+                                     self.fine_rows)
+            S_pad = _row_bucket(max(n_simple, 1), 8, self.fine_rows)
             cells = (R_host_pad + S_pad) * L
             simple_bytes = int((((n[n <= L] + 3) // 4 + 127) // 128).sum()) * 128
             # per long read the chunk contents total n + (nchunks-1)*(L-step)
@@ -654,8 +739,8 @@ class TorchDemuxEngine:
         """The plan's host arrays: packed rows (``force_nibble``: nibble
         rows whatever the batch holds), exceptions, the row descriptors
         the device derives metadata from (plus the packed metadata of
-        the chunk rows, ``C_pad`` of them, default the plan's own pow2
-        count), and the full metadata, which the packet assembly reads
+        the chunk rows, ``C_pad`` of them, default the plan's own
+        row bucket), and the full metadata, which the packet assembly reads
         and the wire-metadata mode uploads."""
         R_total_pad = R_host_pad + S_pad
         with _phase("encode"):
@@ -789,7 +874,7 @@ class TorchDemuxEngine:
                 np.arange(n_chunks, dtype=np.int32) << 2
             ) | 3
         if C_pad is None:
-            C_pad = _pow2_at_least(max(n_chunks, 1), 8)
+            C_pad = _row_bucket(max(n_chunks, 1), 8, self.fine_rows)
         chunk_meta = np.zeros((C_pad, comp.META_WIRE_COLS), dtype=np.int32)
         if n_chunks:
             chunk_meta[:n_chunks] = comp.pack_meta_np(meta[F : F + n_chunks])
@@ -837,39 +922,68 @@ class TorchDemuxEngine:
         """-> (packed, row starts, exceptions, pack mode).
 
         Pack mode 2: concatenated 2-bit base codes, rows back to back at
-        CAT_ALIGN-byte starts (descriptor metadata re-derives the starts
-        on the device with the same formula), encoded natively straight
-        from the raw read bytes — simple reads and end windows with
-        ``bbio_encode_pack2_cat``, fwd + rc chunk rows with
+        ``cat_align``-byte starts (descriptor metadata re-derives the
+        starts on the device with the same formula), encoded natively
+        straight from the raw read bytes — simple reads and end windows
+        with ``bbio_encode_pack2_cat``, fwd + rc chunk rows with
         ``bbio_encode_pack2_chunks``; N/IUPAC/junk bytes ride an
         exception list of (flat_pos, mask) pairs whose sentinel position
-        (one past the padded rows) the device drops.  A batch with more
-        than _EXC_CAP such bytes, a host without the native library,
-        ``force_nibble`` or ``BARBELL_PACK_MODE=0`` take pack mode 0
-        instead: nibble rows [R_host_pad, L/2] (:meth:`_pack_nibble`)."""
+        (one past the padded rows) the device drops.  Pack mode 1
+        (``BARBELL_PACK_MODE=1``): the same codes in padded rows
+        [R_host_pad, L/4] (``bbio_encode_pack2_rows``), falling through
+        to mode 2 past _EXC_CAP exceptions, as the reference does.  A
+        batch with more than _EXC_CAP such bytes, a host without the
+        native library, ``force_nibble`` or ``BARBELL_PACK_MODE=0`` take
+        pack mode 0 instead: nibble rows [R_host_pad, L/2]
+        (:meth:`_pack_nibble`)."""
         lib = get_lib()
-        if (lib is None or force_nibble
-                or os.environ.get("BARBELL_PACK_MODE") == "0"):
+        mode = os.environ.get("BARBELL_PACK_MODE")
+        if lib is None or force_nibble or mode == "0":
             return self._pack_nibble(seq_bytes, plan, R_host_pad, L, lib)
         F = plan.F
         rm = plan.rows_meta
         n_chunks = len(rm)
-        nb = np.zeros(R_host_pad, dtype=np.int64)
         chunk_lens = np.fromiter((r.tec for r in rm), dtype=np.int32,
                                  count=n_chunks)
+        if mode == "1":
+            packed2 = np.zeros((R_host_pad, L // 4), dtype=np.uint8)
+            exc = np.zeros((_EXC_CAP, 2), dtype=np.int32)
+            exc[:, 0] = R_host_pad * L
+            total_exc = 0
+            if F:
+                blob, offs, ls = self._entry_blob(seq_bytes, plan)
+                total_exc = lib.bbio_encode_pack2_rows(
+                    blob,
+                    offs.ctypes.data_as(ctypes.POINTER(ctypes.c_long)),
+                    ls.ctypes.data_as(ctypes.POINTER(ctypes.c_int)),
+                    F,
+                    L,
+                    dna.CODE2_LUT.tobytes(),
+                    dna.ENCODE_LUT.tobytes(),
+                    packed2.ctypes.data_as(ctypes.c_char_p),
+                    exc.ctypes.data_as(ctypes.POINTER(ctypes.c_int)),
+                    _EXC_CAP,
+                )
+            if total_exc <= _EXC_CAP and n_chunks:
+                row_out = (np.arange(n_chunks, dtype=np.int64) + F) * (L // 4)
+                total_exc = self._encode_chunks(seq_bytes, plan, chunk_lens,
+                                                row_out, packed2, exc, total_exc, L)
+            if total_exc <= _EXC_CAP:
+                return packed2, np.zeros(R_host_pad, dtype=np.int32), exc, 1
+        nb = np.zeros(R_host_pad, dtype=np.int64)
         if F:
             blob, offs, ls = self._entry_blob(seq_bytes, plan)
             nb[:F] = (ls.astype(np.int64) + 3) // 4
         if n_chunks:
             nb[F : F + n_chunks] = (chunk_lens.astype(np.int64) + 3) // 4
-        A = comp.CAT_ALIGN
+        A = self.cat_align
         stride = (nb + (A - 1)) // A * A
         starts = np.zeros(R_host_pad, dtype=np.int64)
         np.cumsum(stride[:-1], out=starts[1:])
         # >= L/4 bytes of slack past the last row: every device-side row
         # read spans a full L/4 bytes
         total = int(starts[-1] + nb[-1]) + L
-        t_pad = max(_CAT_BUCKET, _pow2_at_least(total, 8))
+        t_pad = _mantissa_bucket(total, _CAT_BUCKET)
         flat = np.zeros(t_pad, dtype=np.uint8)
         exc = np.zeros((_EXC_CAP, 2), dtype=np.int32)
         exc[:, 0] = R_host_pad * L
@@ -889,43 +1003,55 @@ class TorchDemuxEngine:
                 _EXC_CAP,
             )
         if total_exc <= _EXC_CAP and n_chunks:
-            lmap = {r: i for i, r in enumerate(plan.long_reads)}
-            blob_l = b"".join(seq_bytes[r] for r in plan.long_reads)
-            ls_l = np.fromiter((len(seq_bytes[r]) for r in plan.long_reads),
-                               dtype=np.int32, count=len(plan.long_reads))
-            offs_l = np.zeros(ls_l.shape[0], dtype=np.int64)
-            np.cumsum(ls_l[:-1], dtype=np.int64, out=offs_l[1:])
-            row_rd = np.fromiter((lmap[r.read_idx] for r in rm),
-                                 dtype=np.int32, count=n_chunks)
-            row_off = np.fromiter((r.offset for r in rm), dtype=np.int64,
-                                  count=n_chunks)
-            row_rc = np.fromiter((r.strand is Strand.Rc for r in rm),
-                                 dtype=np.uint8, count=n_chunks)
-            row_out = np.ascontiguousarray(starts[F : F + n_chunks])
-            row_base = (np.arange(n_chunks, dtype=np.int64) + F) * L
-            total_exc = lib.bbio_encode_pack2_chunks(
-                blob_l,
-                offs_l.ctypes.data_as(ctypes.POINTER(ctypes.c_long)),
-                ls_l.ctypes.data_as(ctypes.POINTER(ctypes.c_int)),
-                n_chunks,
-                row_rd.ctypes.data_as(ctypes.POINTER(ctypes.c_int)),
-                row_off.ctypes.data_as(ctypes.POINTER(ctypes.c_long)),
-                chunk_lens.ctypes.data_as(ctypes.POINTER(ctypes.c_int)),
-                row_rc.ctypes.data_as(ctypes.c_char_p),
-                row_out.ctypes.data_as(ctypes.POINTER(ctypes.c_long)),
-                row_base.ctypes.data_as(ctypes.POINTER(ctypes.c_long)),
-                dna.CODE2_LUT.tobytes(),
-                dna.ENCODE_LUT.tobytes(),
-                dna.CODE2C_LUT.tobytes(),
-                dna.MASKC_LUT.tobytes(),
-                flat.ctypes.data_as(ctypes.c_char_p),
-                exc.ctypes.data_as(ctypes.POINTER(ctypes.c_int)),
-                total_exc,
-                _EXC_CAP,
-            )
+            total_exc = self._encode_chunks(
+                seq_bytes, plan, chunk_lens,
+                np.ascontiguousarray(starts[F : F + n_chunks]), flat, exc,
+                total_exc, L)
         if total_exc > _EXC_CAP:
             return self._pack_nibble(seq_bytes, plan, R_host_pad, L, lib)
         return flat, starts.astype(np.int32), exc, 2
+
+    @staticmethod
+    def _encode_chunks(seq_bytes, plan, chunk_lens, row_out, out, exc,
+                       n_exc: int, L: int) -> int:
+        """Native fwd + rc chunk-row encode into ``out`` (row r's codes at
+        byte ``row_out[r]``, exception positions at row (F + r) * L);
+        returns the running exception count (may exceed _EXC_CAP)."""
+        rm = plan.rows_meta
+        n_chunks = len(rm)
+        lmap = {r: i for i, r in enumerate(plan.long_reads)}
+        blob_l = b"".join(seq_bytes[r] for r in plan.long_reads)
+        ls_l = np.fromiter((len(seq_bytes[r]) for r in plan.long_reads),
+                           dtype=np.int32, count=len(plan.long_reads))
+        offs_l = np.zeros(ls_l.shape[0], dtype=np.int64)
+        np.cumsum(ls_l[:-1], dtype=np.int64, out=offs_l[1:])
+        row_rd = np.fromiter((lmap[r.read_idx] for r in rm), dtype=np.int32,
+                             count=n_chunks)
+        row_off = np.fromiter((r.offset for r in rm), dtype=np.int64,
+                              count=n_chunks)
+        row_rc = np.fromiter((r.strand is Strand.Rc for r in rm), dtype=np.uint8,
+                             count=n_chunks)
+        row_base = (np.arange(n_chunks, dtype=np.int64) + plan.F) * L
+        return get_lib().bbio_encode_pack2_chunks(
+            blob_l,
+            offs_l.ctypes.data_as(ctypes.POINTER(ctypes.c_long)),
+            ls_l.ctypes.data_as(ctypes.POINTER(ctypes.c_int)),
+            n_chunks,
+            row_rd.ctypes.data_as(ctypes.POINTER(ctypes.c_int)),
+            row_off.ctypes.data_as(ctypes.POINTER(ctypes.c_long)),
+            chunk_lens.ctypes.data_as(ctypes.POINTER(ctypes.c_int)),
+            row_rc.ctypes.data_as(ctypes.c_char_p),
+            row_out.ctypes.data_as(ctypes.POINTER(ctypes.c_long)),
+            row_base.ctypes.data_as(ctypes.POINTER(ctypes.c_long)),
+            dna.CODE2_LUT.tobytes(),
+            dna.ENCODE_LUT.tobytes(),
+            dna.CODE2C_LUT.tobytes(),
+            dna.MASKC_LUT.tobytes(),
+            out.ctypes.data_as(ctypes.c_char_p),
+            exc.ctypes.data_as(ctypes.POINTER(ctypes.c_int)),
+            n_exc,
+            _EXC_CAP,
+        )
 
     def _pack_nibble(self, seq_bytes, plan, R_host_pad: int, L: int, lib):
         """Pack mode 0: every host row as [L/2] nibble-packed masks (4 bits
@@ -1037,12 +1163,12 @@ class TorchDemuxEngine:
         """Enqueue one device call running ``gplans`` on ``batch`` (the
         batch prefix once, then each group) on the batch's device; its
         groups' packed outputs, concatenated in order, stay there."""
-        dev = batch.parts["host_packed"].device
         return comp.demux_call_fused(
-            [self._group_args(g, batch.step, dev) for g in gplans], batch.parts,
-            K=self.K, H_cap=H_cap, pack_mode=batch.pack_mode, L_rows=batch.L,
-            S_pad=batch.S_pad, ends_w=self.ends_wl, ends_wr=self.ends_wr,
-            halo=self.halo, padding=PADDING,
+            [self._group_args(g, batch.step, batch.device) for g in gplans],
+            batch.parts, K=self.K, H_cap=H_cap, pack_mode=batch.pack_mode,
+            L_rows=batch.L, S_pad=batch.S_pad, ends_w=self.ends_wl,
+            ends_wr=self.ends_wr, halo=self.halo, padding=PADDING,
+            cat_align=self.cat_align,
         )
 
     @staticmethod

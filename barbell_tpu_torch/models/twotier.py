@@ -19,6 +19,7 @@ from .. import PADDING
 from . import hittable
 from .hittable import HitTable
 from .pipeline import TorchDemuxEngine, _pow2_at_least
+from .records import BarbellMatch
 
 
 @dataclass(frozen=True)
@@ -49,8 +50,10 @@ def make_ends_engine(groups, plan: Optional[EndsPlan], **engine_kwargs):
 
 class TwoTierDemuxEngine:
     """Shallow-scan + deep-rescue wrapper around two
-    :class:`TorchDemuxEngine` instances, with the same
-    ``demux_batch_table`` interface (drivable by ``engine_map_batches``).
+    :class:`TorchDemuxEngine` instances, with the same ``demux_batch`` /
+    ``demux_batch_table`` interface (drivable by ``engine_map_batches``)
+    and the same keyword arguments, passed to both tiers, except that the
+    deep tier always pads rows to powers of two (``fine_rows=False``).
     Rescue batches pad with deterministic dummy reads to a fixed row
     bucket, as the JAX engine does, so both engines see the same
     batches."""
@@ -65,7 +68,9 @@ class TwoTierDemuxEngine:
         self.shallow = TorchDemuxEngine(
             groups, ends_window=plan.shallow, **engine_kwargs
         )
-        self.deep = TorchDemuxEngine(groups, ends_window=plan.deep, **engine_kwargs)
+        # the rescue batches' row bucket stays pinned
+        deep_kwargs = dict(engine_kwargs, fine_rows=False)
+        self.deep = TorchDemuxEngine(groups, ends_window=plan.deep, **deep_kwargs)
         self.groups = self.shallow.groups
         self.devices = self.shallow.devices
         self.labels = self.shallow.labels
@@ -93,6 +98,12 @@ class TwoTierDemuxEngine:
         """The shallow tier's dispatch of the last batch (see
         :attr:`TorchDemuxEngine.last_dispatch`)."""
         return self.shallow.last_dispatch
+
+    def demux_batch(
+        self, read_ids: List[str], seqs: List[bytes]
+    ) -> List[List[BarbellMatch]]:
+        """Per-read ``BarbellMatch`` lists (the object API)."""
+        return hittable.table_to_matches(self.demux_batch_table(read_ids, seqs))
 
     def demux_batch_table(
         self, read_ids: List[str], seqs: List[bytes]

@@ -1,19 +1,29 @@
 """The fused per-batch demux call, in PyTorch around the three kernels.
 
-Counterpart of :func:`barbell_tpu.ops.composite.demux_call` and
+Counterpart of :func:`barbell_tpu.ops.composite.demux_call`,
+:func:`~barbell_tpu.ops.composite.demux_call_mono` and
 :func:`~barbell_tpu.ops.composite.demux_call_fused` on their kernel
 path.  A batch arrives as 2-bit concatenated rows (``pack_mode=2``) with
 device-derived (``meta_mode='desc'``) or uploaded (``'wire'``)
-metadata, or as nibble rows (``pack_mode=0``) with uploaded metadata;
-the scan is the whole read (``ends_w = 0``, with chunk rows) or its
-ends; barcode-rank lanes are split by strand when ``H_cap % 256 == 0``
-and ranked against both strands' patterns otherwise.  The batch prefix
+metadata, or as padded 2-bit rows (``pack_mode=1``) or nibble rows
+(``pack_mode=0``) with uploaded metadata; its arrays come as separate
+tensors or as named segments of one uint8 blob (``spans``, one
+host-to-device copy a batch); the scan is the whole read (``ends_w =
+0``, with chunk rows) or its ends; barcode-rank lanes are split by
+strand when ``H_cap % 256 == 0`` and ranked against both strands'
+patterns otherwise.  The batch prefix
 (metadata, rows, rc twins) runs once per batch; then each group runs
 flank scan -> hit compaction -> flank traceback -> barcode-window
 mapping -> barcode rank -> winner interval mapping and returns the same
 flat int32 buffer: ``[H_cap * wire-record lanes] ++ [ceil(R/32)
 overflow-bitmask words] ++ [total]``; a fused call concatenates the
 groups' buffers.
+
+The staged composites :func:`flank_scan`, :func:`flank_trace` and
+:func:`barcode_rank` are the call's stages as separately testable
+pieces on the same kernels (their plain versions on CPU tensors); their
+``*_reference`` variants run :mod:`barbell_tpu_torch.ops.device`'s move
+table and traceback on any device, the conformance anchors.
 
 Row coordinate model: every row holds its text in columns
 ``[tsc, tec]`` (forward rows left-aligned at 0; on-device rc twins
@@ -28,6 +38,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from . import device as dev_ops
 from .myers import TOPK as MYERS_TOPK
 from .myers import myers_topk
 from .oracle import COST_SCALE
@@ -37,7 +48,7 @@ from .window import window_interval, window_trace, window_valleys
 
 UNIT = COST_SCALE
 BIG = 2**30
-CAT_ALIGN = 64  # byte alignment of concatenated rows (host packer too)
+CAT_ALIGN = 64  # default byte alignment of concatenated rows (host packer too)
 
 # Column layout of the per-hit record.
 REC_COLS = 14
@@ -308,34 +319,52 @@ def pack_rows_np(rows):
     return (r[:, 0::2] | (r[:, 1::2] << 4)).astype(rows.dtype)
 
 
-def _cat_rows(flat_codes, row_start, exc, hlen, L: int):
-    """Host rows [R0, L] from the concatenated 2-bit codes: each row's
-    ceil(len/4) code bytes scatter into the padded layout as single-base
-    masks (1 << code), positions past the row's content zero out, and
-    the exception list overrides N/IUPAC/junk bytes (entries are
-    (flat_pos, mask) pairs; out-of-range positions are padding and
-    dropped)."""
-    dev = flat_codes.device
-    R0 = row_start.shape[0]
-    Q = L // 4
-    idx = (row_start[:, None] + torch.arange(Q, device=dev)).clamp(
-        0, flat_codes.shape[0] - 1
-    )
-    b = flat_codes[idx.long()].to(torch.int32)
-    codes = torch.stack([(b >> (2 * s)) & 3 for s in range(4)], dim=2).reshape(R0, L)
-    masks = (1 << codes).to(torch.uint8)
-    jpos = torch.arange(L, device=dev)
-    masks = torch.where(jpos[None, :] < hlen[:, None], masks, 0).to(torch.uint8)
-    # scatter with a spill slot: dropped entries land on index R0 * L
-    flat = torch.cat([masks.reshape(-1), torch.zeros(1, dtype=torch.uint8, device=dev)])
+def _apply_exceptions(masks, exc):
+    """The exception list's (flat_pos, mask) pairs written over the
+    [R0, L] mask rows; out-of-range positions are padding and land on a
+    spill slot past the rows (the reference drops them)."""
+    R0, L = masks.shape
+    flat = torch.cat([masks.reshape(-1),
+                      torch.zeros(1, dtype=torch.uint8, device=masks.device)])
     pos = exc[:, 0].long()
     pos = torch.where((pos >= 0) & (pos < R0 * L), pos, R0 * L)
     flat[pos] = exc[:, 1].to(torch.uint8)
     return flat[: R0 * L].reshape(R0, L)
 
 
+def _codes_to_masks(b, hlen, L: int):
+    """[R0, L/4] 2-bit code bytes -> [R0, L] single-base masks (1 <<
+    code), zero past each row's content (code 0 would read as 'A')."""
+    b = b.to(torch.int32)
+    R0 = b.shape[0]
+    codes = torch.stack([(b >> (2 * s)) & 3 for s in range(4)], dim=2).reshape(R0, L)
+    masks = (1 << codes).to(torch.uint8)
+    jpos = torch.arange(L, device=b.device)
+    return torch.where(jpos[None, :] < hlen[:, None], masks, 0).to(torch.uint8)
+
+
+def _cat_rows(flat_codes, row_start, exc, hlen, L: int):
+    """Host rows [R0, L] from the concatenated 2-bit codes: each row's
+    ceil(len/4) code bytes scatter into the padded layout as masks, and
+    the exception list overrides N/IUPAC/junk bytes."""
+    R0 = row_start.shape[0]
+    idx = (row_start[:, None] + torch.arange(L // 4, device=flat_codes.device)).clamp(
+        0, flat_codes.shape[0] - 1
+    )
+    return _apply_exceptions(_codes_to_masks(flat_codes[idx.long()], hlen, L), exc)
+
+
+def _rows2(packed2, exc, hlen):
+    """Host rows [R0, L] from padded 2-bit rows [R0, L/4] (pack mode 1):
+    :func:`_cat_rows` without the byte gather."""
+    return _apply_exceptions(
+        _codes_to_masks(packed2, hlen, 4 * packed2.shape[1]), exc
+    )
+
+
 def batch_rows(parts, *, pack_mode: int, L_rows: int, S_pad: int,
-               ends_w: int, ends_wr: int, halo: int, padding: int):
+               ends_w: int, ends_wr: int, halo: int, padding: int,
+               cat_align: int = CAT_ALIGN):
     """The group-independent prefix of a batch's device call: (rows
     [R_host + S_pad, L] u8 masks, metadata [R_host + S_pad, META_COLS]).
 
@@ -349,13 +378,18 @@ def batch_rows(parts, *, pack_mode: int, L_rows: int, S_pad: int,
     * uploaded ("wire") metadata: ``host_packed``, ``meta`` (the
       :func:`pack_meta_np` table of every row, twins included),
       ``simple_idx`` (the host row of each twin), ``exc`` and
-      ``row_start`` (the rows' byte starts), with ``host_packed`` either
-      the concatenated 2-bit codes (``pack_mode=2``) or nibble rows
-      ``[R_host, L/2]`` (``pack_mode=0``, which ignores ``exc`` and
-      ``row_start``)."""
+      ``row_start`` (the rows' byte starts), with ``host_packed`` the
+      concatenated 2-bit codes (``pack_mode=2``), padded 2-bit rows
+      ``[R_host, L/4]`` (``pack_mode=1``, which ignores ``row_start``)
+      or nibble rows ``[R_host, L/2]`` (``pack_mode=0``, which ignores
+      ``exc`` and ``row_start``).
+
+    ``cat_align`` is the host packer's row alignment in the
+    concatenated codes (the descriptor layout re-derives the row starts
+    with it)."""
     host_packed, exc = parts["host_packed"], parts["exc"]
-    if pack_mode not in (0, 2):
-        raise ValueError(f"pack mode {pack_mode} is not ported (modes 0 and 2 are)")
+    if pack_mode not in (0, 1, 2):
+        raise ValueError(f"unknown pack mode {pack_mode}")
     if "rowdesc" in parts:
         if pack_mode != 2:
             raise ValueError("meta_mode='desc' requires pack_mode 2")
@@ -364,7 +398,7 @@ def batch_rows(parts, *, pack_mode: int, L_rows: int, S_pad: int,
                             ends_w, ends_wr, halo, padding)
         hlen = meta[: rowdesc.shape[0], M_TEC]
         nb = (hlen + 3) >> 2
-        stride = (nb + (CAT_ALIGN - 1)) // CAT_ALIGN * CAT_ALIGN
+        stride = (nb + (cat_align - 1)) // cat_align * cat_align
         row_start = torch.cat([
             torch.zeros(1, dtype=torch.int32, device=host_packed.device),
             torch.cumsum(stride[:-1], 0).to(torch.int32),
@@ -377,6 +411,8 @@ def batch_rows(parts, *, pack_mode: int, L_rows: int, S_pad: int,
             row_start = parts["row_start"]
             host_rows = _cat_rows(host_packed, row_start, exc,
                                   meta[: row_start.shape[0], M_TEC], L_rows)
+        elif pack_mode == 1:
+            host_rows = _rows2(host_packed, exc, meta[: host_packed.shape[0], M_TEC])
         else:
             host_rows = unpack_rows(host_packed)
         twin_src = host_rows[parts["simple_idx"].long()]
@@ -508,29 +544,102 @@ def demux_call(
 
 def demux_call_fused(
     groups,  # [GroupArgs] in plan order
-    parts,  # the batch's uploaded arrays, named as batch_rows reads them
+    parts,  # the batch's arrays, named as batch_rows reads them, or its blob
     *,
     K: int,
     H_cap: int,  # hit-lane capacity of every group (strand halves of H_cap / 2)
-    pack_mode: int,  # 2: concatenated 2-bit codes; 0: nibble rows
+    pack_mode: int,  # 2: concatenated 2-bit codes; 1: padded 2-bit rows; 0: nibble rows
     L_rows: int,  # row width
     S_pad: int,  # twin-block rows
     ends_w: int,  # ends mode: PREFIX window width (0 = whole-read scan)
     ends_wr: int,  # SUFFIX window width (0 = symmetric)
     halo: int,  # flank halo
     padding: int,  # barcode window padding (PADDING)
+    cat_align: int = CAT_ALIGN,  # row alignment of the concatenated codes
+    spans=None,  # the blob's layout (build_blob_named) when parts is a blob
 ):
     """Every group's demux for one batch: the batch prefix
     (:func:`batch_rows`: metadata and rows, which depend on no group)
-    once, then each group's body.  Returns the groups' flat buffers (see
-    the module doc) concatenated in group order; each group's length
-    follows its own record layout (:func:`rec_wire_spec`)."""
+    once, then each group's body.  ``parts`` is a dict of the batch's
+    tensors or, with ``spans``, the uint8 blob that carries them all
+    (:func:`_blob_parts` slices it on its device).  Returns the groups'
+    flat buffers (see the module doc) concatenated in group order; each
+    group's length follows its own record layout
+    (:func:`rec_wire_spec`)."""
+    if spans is not None:
+        parts = _blob_parts(parts, spans)
     rows, meta = batch_rows(parts, pack_mode=pack_mode, L_rows=L_rows,
                             S_pad=S_pad, ends_w=ends_w, ends_wr=ends_wr,
-                            halo=halo, padding=padding)
+                            halo=halo, padding=padding, cat_align=cat_align)
     outs = [_group_body(rows, meta, g, K=K, H_cap=H_cap, padding=padding,
                         ends_w=ends_w, ends_wr=ends_wr) for g in groups]
     return torch.cat(outs) if len(outs) > 1 else outs[0]
+
+
+def demux_call_mono(group: GroupArgs, blob, *, spans, **statics):
+    """One group's demux with every per-batch array riding ONE uint8
+    blob (one host-to-device copy a batch): :func:`batch_rows` on the
+    blob's segments, then :func:`_group_body`.  ``spans`` is the
+    (name, byte offset, shape) layout of :func:`build_blob_named`;
+    ``statics`` are :func:`demux_call_fused`'s keyword arguments."""
+    return demux_call_fused([group], blob, spans=spans, **statics)
+
+
+def build_blob_named(*segs):
+    """(blob uint8, spans) from (name, numpy array) segments, in order;
+    every segment but ``host_packed`` is int32 and starts 4-byte aligned
+    so the device reads it in place (:func:`_blob_parts`)."""
+    spans = []
+    off = 0
+    chunks = []
+    for name, arr in segs:
+        if off % 4:
+            pad = 4 - off % 4
+            chunks.append(np.zeros(pad, dtype=np.uint8))
+            off += pad
+        spans.append((name, off, tuple(arr.shape)))
+        raw = arr.reshape(-1).view(np.uint8)
+        chunks.append(raw)
+        off += raw.size
+    return np.concatenate(chunks), tuple(spans)
+
+
+def build_blob_np(host_packed, simple_idx, meta_packed, exc, row_start):
+    """(blob, spans) of the uploaded-metadata layout."""
+    return build_blob_named(
+        ("host_packed", np.ascontiguousarray(host_packed, dtype=np.uint8)),
+        ("simple_idx", np.ascontiguousarray(simple_idx, dtype=np.int32)),
+        ("meta", np.ascontiguousarray(meta_packed, dtype=np.int32)),
+        ("exc", np.ascontiguousarray(exc, dtype=np.int32)),
+        ("row_start", np.ascontiguousarray(row_start, dtype=np.int32)),
+    )
+
+
+def build_blob_desc_np(host_packed, rowdesc, chunk_meta_packed, exc):
+    """(blob, spans) of the descriptor layout (``meta_mode='desc'``): the
+    codes, the 4-byte row descriptors, the chunk rows' packed metadata
+    and the exceptions; the rest is derived on the device."""
+    return build_blob_named(
+        ("host_packed", np.ascontiguousarray(host_packed, dtype=np.uint8)),
+        ("rowdesc", np.ascontiguousarray(rowdesc, dtype=np.int32)),
+        ("chunk_meta", np.ascontiguousarray(chunk_meta_packed, dtype=np.int32)),
+        ("exc", np.ascontiguousarray(exc, dtype=np.int32)),
+    )
+
+
+def _blob_parts(blob, spans):
+    """The blob's named segments as tensors on its device, without a
+    copy: ``host_packed`` a uint8 view, every other segment the int32
+    reinterpretation of its bytes (4-byte aligned by the layout, which
+    ``Tensor.view(torch.int32)`` checks)."""
+    parts = {}
+    for name, off, shape in spans:
+        n = int(np.prod(shape, dtype=np.int64))
+        if name == "host_packed":
+            parts[name] = blob[off : off + n].view(shape)
+        else:
+            parts[name] = blob[off : off + 4 * n].view(torch.int32).view(shape)
+    return parts
 
 
 def _group_body(rows, meta, group: GroupArgs, *, K, H_cap, padding, ends_w,
@@ -675,7 +784,7 @@ def _group_body(rows, meta, group: GroupArgs, *, K, H_cap, padding, ends_w,
     if split:
         # [H, P] strand-local: each lane against its own strand's stack
         key2, lodhi_best = rank_pass1_split(patterns_all, windows, b_len, half)
-        lane_mask = torch.ones(key2.shape, dtype=torch.bool, device=dev)
+        lane_mask = None
         strand_off = torch.where(h_isrc != 0, P, 0).to(i32)
     else:
         # [H, 2P] against both stacks, masked to the lane's own strand
@@ -686,29 +795,9 @@ def _group_body(rows, meta, group: GroupArgs, *, K, H_cap, padding, ends_w,
         strand_off = torch.zeros(H_cap, dtype=i32, device=dev)
     best_cost = key2 // 256
     best_pos = key2 % 256
-
-    in_k1 = (best_cost <= k1_scaled) & lane_mask
-    matched = in_k1.sum(dim=1)
-    use_all = matched <= 1
-    cand = (use_all[:, None] | in_k1) & has2[:, None] & lane_mask
-    # divide by a device tensor: a CPU-scalar divisor may become a
-    # reciprocal multiply on CUDA, which rounds differently
-    scores = torch.where(
-        cand, lodhi_best / torch.full_like(lodhi_best, perfect), -torch.inf
-    )
-    top_local = torch.argmax(scores, dim=1).to(i32)
-    top = top_local + strand_off  # index into patterns_all
-    top_norm = torch.gather(scores, 1, top_local.long()[:, None])[:, 0]
-    rest = torch.where(
-        torch.arange(scores.shape[1], device=dev)[None, :] == top_local[:, None],
-        -torch.inf, scores,
-    )
-    second_norm = rest.max(dim=1).values
-    n_cand = cand.sum(dim=1)
-    accepted = (top_norm >= min_score) & (
-        (n_cand <= 1) | ((top_norm - second_norm) >= min_score_diff)
-    )
-    accepted = accepted & has2 & (n_cand > 0)
+    top_local, accepted = _select(best_cost, lodhi_best, has2, k1_scaled, perfect,
+                                  min_score, min_score_diff, lane_mask)
+    top = top_local.to(i32) + strand_off  # index into patterns_all
 
     # ---- interval mapping for the winner only --------------------------
     pat_top = patterns_all[top.long()]
@@ -749,3 +838,192 @@ def _group_body(rows, meta, group: GroupArgs, *, K, H_cap, padding, ends_w,
     words = (over.reshape(nw, 32) << torch.arange(32, device=dev)).sum(dim=1)
     words = torch.where(words >= 2**31, words - 2**32, words).to(i32)
     return torch.cat([rec.reshape(-1), words, total_out.reshape(1).to(i32)])
+
+
+# ---------------------------------------------------------------------------
+# Staged composites: the fused call's stages, one at a time
+# ---------------------------------------------------------------------------
+
+
+class FlankScanOut(NamedTuple):
+    rows: torch.Tensor  # [R_total, L] assembled rows (on the device)
+    packed: torch.Tensor  # [R_total, 2K+1] int32: K col | K cost | count
+
+
+def flank_scan(pattern, patw, host_packed, simple_idx, start_col, end_col, lo,
+               hi, emit_lo, emit_hi, alpha_scaled, *, K: int, m: int,
+               k_units: int) -> FlankScanOut:
+    """Flank scan of nibble rows ``host_packed`` [R_host, L/2] plus the
+    rc twins of host rows ``simple_idx``: the rows, and per row the K
+    lowest valley keys split into column and cost (BIG where empty) and
+    the valley count (``count + K + 1`` marks a row with more than 8
+    interior or boundary valleys).  ``patw`` is the int32 view of the
+    Myers pattern words; ``start_col`` / ``end_col`` / ``lo`` / ``hi`` /
+    ``emit_lo`` / ``emit_hi`` are per row, as :func:`_group_body` derives
+    them.  Runs Myers top-K and the window valley kernel (their plain
+    versions on CPU tensors)."""
+    host_rows = unpack_rows(host_packed)
+    twins = _complement_masks(host_rows[simple_idx.long()].flip(1))
+    rows = torch.cat([host_rows, twins], dim=0)
+    key_top, count = _scan_keys(
+        pattern, patw, rows, start_col, end_col, lo, hi, emit_lo, emit_hi,
+        int(alpha_scaled), K, m, k_units,
+    )
+    L_key = rows.shape[1] + 2
+    found = key_top < BIG
+    pos = torch.where(found, key_top % L_key, 0)
+    cost = torch.where(found, key_top // L_key, BIG)
+    packed = torch.cat([pos, cost, count[:, None]], dim=1).to(torch.int32)
+    return FlankScanOut(rows=rows, packed=packed)
+
+
+def unpack_flank_scan(packed, K: int):
+    """(col [R, K], cost [R, K], valid [R, K], count [R]) of
+    :func:`flank_scan`'s ``packed``."""
+    pos = packed[:, :K]
+    cost = packed[:, K : 2 * K]
+    count = packed[:, 2 * K]
+    return pos, cost, cost < BIG, count
+
+
+def _masked_windows(rows, row_idx, win_start, w_len, W: int):
+    windows = _gather_windows(rows, row_idx, win_start, W)
+    jpos = torch.arange(W, device=rows.device)
+    return torch.where(jpos[None, :] < w_len[:, None], windows, 0).to(torch.uint8)
+
+
+def flank_trace(pattern, rows, row_idx, win_start, left_edge, right_pos, end_j,
+                valid, region_a, region_b, alpha_scaled, *, m: int, W: int):
+    """[H, 4] int32: text start, region lo, region hi, has region (all
+    window-relative) of the flank's optimal path ending at ``end_j`` in
+    each lane's window ``rows[row_idx, win_start : win_start + W]``.
+    Runs the window trace kernel (its plain version on CPU tensors);
+    ``valid`` is unused here, as in the reference's fused form."""
+    windows = _masked_windows(rows, row_idx, win_start, end_j, W)
+    ts, rlo, rhi = window_trace(pattern, windows, end_j, left_edge, right_pos,
+                                int(alpha_scaled), int(region_a), int(region_b))
+    return torch.stack([ts, rlo, rhi, (rhi >= 0).to(torch.int32)], dim=1).to(torch.int32)
+
+
+def flank_trace_reference(pattern, rows, row_idx, win_start, left_edge,
+                          right_pos, end_j, valid, region_a, region_b,
+                          alpha_scaled, *, m: int, W: int):
+    """:func:`flank_trace` by :func:`~barbell_tpu_torch.ops.device.window_dp`
+    and :func:`~barbell_tpu_torch.ops.device.traceback_reduce` (the
+    conformance anchor, on any device)."""
+    windows = _masked_windows(rows, row_idx, win_start, end_j, W)
+    wdp = dev_ops.window_dp(pattern[None, :], windows, left_edge, right_pos,
+                            alpha_scaled)
+    tr = dev_ops.traceback_reduce(wdp.moves, end_j[:, None], valid[:, None],
+                                  region_a, region_b, 0, 0, m=m, W=W)
+    return torch.stack(
+        [tr.text_start[:, 0], tr.region_lo[:, 0], tr.region_hi[:, 0],
+         tr.has_region[:, 0].to(torch.int32)],
+        dim=1,
+    ).to(torch.int32)
+
+
+def _select(best_cost, lodhi, hvalid, k1_scaled, perfect, min_score,
+            min_score_diff, allowed=None):
+    """(top, accepted) of the barcode selection over each lane's
+    ``allowed`` patterns (default all): candidates within k1 (every
+    allowed pattern when at most one is), the best normalized Lodhi
+    score, accepted above ``min_score`` and ``min_score_diff`` ahead of
+    the second; ties to the first pattern.  Comparisons run in f32."""
+    P = best_cost.shape[1]
+    in_k1 = best_cost <= int(k1_scaled)
+    if allowed is not None:
+        in_k1 = in_k1 & allowed
+    use_all = in_k1.sum(dim=1) <= 1
+    cand = (use_all[:, None] | in_k1) & hvalid[:, None]
+    if allowed is not None:
+        cand = cand & allowed
+    # divide by a device tensor: a CPU-scalar divisor may become a
+    # reciprocal multiply on CUDA, which rounds differently
+    scores = torch.where(
+        cand, lodhi / torch.full_like(lodhi, float(perfect)), -torch.inf
+    )
+    top = torch.argmax(scores, dim=1)
+    top_norm = torch.gather(scores, 1, top[:, None])[:, 0]
+    rest = torch.where(
+        torch.arange(P, device=scores.device)[None, :] == top[:, None],
+        -torch.inf, scores,
+    )
+    second_norm = rest.max(dim=1).values
+    n_cand = cand.sum(dim=1)
+    accepted = (top_norm >= float(min_score)) & (
+        (n_cand <= 1) | ((top_norm - second_norm) >= float(min_score_diff))
+    )
+    return top, accepted & hvalid & (n_cand > 0)
+
+
+def barcode_rank(patterns, rows, row_idx, win_start, w_len, hvalid, k1_scaled,
+                 iv_a, iv_b, perfect, min_score, min_score_diff, *, m: int,
+                 W: int):
+    """[H, 8] int32: top pattern, accepted, read_bar_start,
+    read_bar_end, bar_start, bar_end, bar_cost, has_interval, for one
+    strand's pattern stack [P, m] over each lane's window.  The rank
+    runs the non-split rank kernel when ``W <= 255`` and the summary DP
+    (:mod:`~barbell_tpu_torch.ops.device`) otherwise; then the selection
+    and the winner's interval by the window interval kernel (plain
+    versions on CPU tensors)."""
+    windows = _masked_windows(rows, row_idx, win_start, w_len, W)
+    H = windows.shape[0]
+    dev = windows.device
+    if W <= 255:
+        key, lodhi_best = rank_pass1(patterns, windows, w_len)
+        best_cost, best_pos = key // 256, key % 256
+    else:
+        summ = dev_ops.window_dp_summary(
+            patterns[None], windows, torch.zeros(H, dtype=torch.bool, device=dev),
+            torch.full((H,), -1, dtype=torch.int32, device=dev), UNIT, 0, -1,
+            iv_a, iv_b, with_lodhi=True,
+        )
+        best = dev_ops.best_valley_per_pattern(summ.ends, w_len)
+        best_cost, best_pos = best.cost, best.pos
+        lodhi_best = torch.gather(summ.lodhi, 2, best_pos.long()[:, :, None])[:, :, 0]
+    top, accepted = _select(best_cost, lodhi_best, hvalid.to(torch.bool),
+                            k1_scaled, perfect, min_score, min_score_diff)
+    end_top = torch.gather(best_pos, 1, top[:, None])[:, 0]
+    iv = window_interval(patterns[top], windows, end_top, int(iv_a), int(iv_b))
+    return torch.stack(
+        [top.to(torch.int32), accepted.to(torch.int32), iv[:, 0], iv[:, 1] + 1,
+         iv[:, 2], iv[:, 3] + 1, iv[:, 4], iv[:, 5]],
+        dim=1,
+    ).to(torch.int32)
+
+
+def barcode_rank_reference(patterns, rows, row_idx, win_start, w_len, hvalid,
+                           k1_scaled, iv_a, iv_b, perfect, min_score,
+                           min_score_diff, *, m: int, W: int):
+    """:func:`barcode_rank` by every lane's
+    :func:`~barbell_tpu_torch.ops.device.window_dp` and
+    :func:`~barbell_tpu_torch.ops.device.traceback_reduce` (the
+    conformance anchor, on any device).  Lanes outside the candidates
+    are not traced, so their interval fields keep the walk's initial
+    values: compare lanes where ``hvalid``."""
+    windows = _masked_windows(rows, row_idx, win_start, w_len, W)
+    H = windows.shape[0]
+    dev = windows.device
+    bdp = dev_ops.window_dp(
+        patterns, windows, torch.zeros(H, dtype=torch.bool, device=dev),
+        torch.full((H,), -1, dtype=torch.int32, device=dev), UNIT,
+    )
+    best = dev_ops.best_valley_per_pattern(bdp.ends, w_len)
+    hv = hvalid.to(torch.bool)
+    in_k1 = best.cost <= int(k1_scaled)
+    cand = ((in_k1.sum(dim=1) <= 1)[:, None] | in_k1) & hv[:, None]
+    tr = dev_ops.traceback_reduce(bdp.moves, best.pos, cand, 0, -1, iv_a, iv_b,
+                                  m=m, W=W)
+    top, accepted = _select(best.cost, tr.lodhi, hv, k1_scaled, perfect,
+                            min_score, min_score_diff)
+
+    def pick(arr):
+        return torch.gather(arr, 1, top[:, None])[:, 0].to(torch.int32)
+
+    return torch.stack(
+        [top.to(torch.int32), accepted.to(torch.int32), pick(tr.iv_pj),
+         pick(tr.iv_ej) + 1, pick(tr.iv_pi), pick(tr.iv_ei) + 1,
+         pick(tr.iv_cost), pick(tr.has_interval)],
+        dim=1,
+    ).to(torch.int32)

@@ -9,6 +9,9 @@ device's hit records come back with its rows.  No collective carries
 demux data, so the mesh is a list of devices, each running its block's
 fused call on its own current stream
 (:meth:`~barbell_tpu_torch.models.pipeline.TorchDemuxEngine.demux_batch_table`).
+:func:`sharded_flank_step` is the mesh form of the plain flank stages,
+with the one reduction demultiplexing has: the count of rows with a hit,
+summed over the shards on the first device.
 """
 
 from __future__ import annotations
@@ -16,6 +19,8 @@ from __future__ import annotations
 from typing import List, Optional, Sequence
 
 import torch
+
+from ..ops import device as dev_ops
 
 READS_AXIS = "reads"
 
@@ -33,3 +38,39 @@ def resolve_devices(device, devices: Optional[Sequence] = None) -> List[torch.de
     if dev.type == "cuda" and dev.index is None and torch.cuda.device_count() > 1:
         return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     return [dev]
+
+
+def shard_rows(devices: Sequence, *arrays):
+    """Each array's leading axis split into ``len(devices)`` equal row
+    blocks, block d on ``devices[d]``: a tuple (one entry an array) of
+    per-device tensor lists.  The row count must divide evenly."""
+    devs = [torch.device(d) for d in devices]
+    out = []
+    for arr in arrays:
+        t = torch.as_tensor(arr)
+        if t.shape[0] % len(devs):
+            raise ValueError(f"{t.shape[0]} rows do not split over {len(devs)} devices")
+        out.append([blk.to(d) for blk, d in zip(t.chunk(len(devs)), devs)])
+    return tuple(out)
+
+
+def sharded_flank_step(devices: Sequence, K: int = 16):
+    """The sharded flank step over ``devices``: ``step(pattern, rows,
+    start_col, end_col, lo, hi, k_scaled, alpha_scaled)`` with the row
+    arrays as :func:`shard_rows` gives them runs
+    :func:`~barbell_tpu_torch.ops.device.flank_ends` and
+    :func:`~barbell_tpu_torch.ops.device.find_hits` on each device's
+    rows and returns (per-device ``Hits``, the rows with a hit summed
+    over the shards, on the first device).  Hits stay with their rows."""
+    devs = [torch.device(d) for d in devices]
+
+    def step(pattern, rows, start_col, end_col, lo, hi, k_scaled, alpha_scaled):
+        hits, found = [], []
+        for d, r, s, e, a, b in zip(devs, rows, start_col, end_col, lo, hi):
+            ends = dev_ops.flank_ends(pattern.to(d), r, s, e, alpha_scaled)
+            h = dev_ops.find_hits(ends, a, b, k_scaled, K)
+            hits.append(h)
+            found.append(h.valid.any(dim=1).sum(dtype=torch.int32))
+        return hits, sum(f.to(devs[0]) for f in found)
+
+    return step

@@ -61,7 +61,26 @@ Phases (any failure exits non-zero and prints no result line):
    ``BARBELL_PROFILE_DIR``: phase report, device busy share, kernel time
    by name, launches a batch, fetch against dispatch; the TSV equals the
    untraced pass's;
-10. kernels at the whole-read paths' and the extended path's shapes,
+10. the one-blob upload (``[upload]``) — the first batch of the ends,
+   extended and whole-read paths with ``mono_upload`` on (the default)
+   and off: equal tables, the reference's dispatch rule (one fused call
+   of both groups only on the blob), one host-to-device copy a batch on
+   the blob (profiler trace) against one an array, and where the host
+   waits for the card (sync debug mode);
+11. row buckets (``[fine_rows]``) — the same batches with 1/8-octave row
+   buckets against powers of two: equal tables, the padded rows and hit
+   capacity of each call both ways, each kernel's device ms a batch both
+   ways (CUDA-graph replays of the batch's captured calls); each kernel
+   call of the whole-read batch with fine rows against its plain version
+   on the card, timed and bounded ("fine-rows whole-read" entries);
+12. ``[pack1]`` — ``BARBELL_PACK_MODE=1`` (padded 2-bit rows) against
+   pack mode 2 on the first ends and whole-read batches: equal tables;
+13. the staged composites (``[stage_ops]``) — ``flank_scan``,
+   ``flank_trace`` and ``barcode_rank`` on the card at the ends shapes
+   (the first ends batch's rows, its first 2816 hits), each equal to its
+   CPU route (the kernels' plain versions) on the same inputs, the trace
+   and the rank to their ``_reference`` variants on the card;
+14. kernels at the whole-read paths' and the extended path's shapes,
    recorded from their batches (the extended ones with the fusion
    template's flank and patterns), and the Myers kernel on the
    arguments of one full batch of the ends path, the extended path and
@@ -360,6 +379,22 @@ def _bound(n_bytes: float, int_ops: float, f32_ops: float = 0.0):
 MYERS_SRC = "barbell_tpu_torch/csrc/myers.cu"
 MYERS_REP = "barbell_tpu/ops/pallas_myers.py:71"
 
+#: each kernel wrapper the fused call reaches: (its CUDA source, the
+#: Pallas site it replaces)
+KERNEL_SITES = {
+    "myers_topk": (MYERS_SRC, MYERS_REP + " (top-K mode, via :318)"),
+    "window_valleys": ("barbell_tpu_torch/csrc/window.cu",
+                       "barbell_tpu/ops/pallas_window.py:51 (MODE_VALLEY, via :357)"),
+    "window_trace": ("barbell_tpu_torch/csrc/window.cu",
+                     "barbell_tpu/ops/pallas_window.py:51 (MODE_TRACE, via :402)"),
+    "window_interval": ("barbell_tpu_torch/csrc/window.cu",
+                        "barbell_tpu/ops/pallas_window.py:51 (MODE_INTERVAL, via :434)"),
+    "rank_pass1_split": ("barbell_tpu_torch/csrc/rank.cu",
+                         "barbell_tpu/ops/pallas_rank.py:55 (strand-split, via :223)"),
+    "rank_pass1": ("barbell_tpu_torch/csrc/rank.cu",
+                   "barbell_tpu/ops/pallas_rank.py:55 (non-split, via :266)"),
+}
+
 
 def _myers_bound(args, out_bytes):
     """Bound of a Myers call on ``args`` (the wrapper's arguments) that
@@ -516,7 +551,7 @@ class KernelCheck:
 
         W = args[0].shape[1]
         entry = self.record(
-            "myers_topk", MYERS_SRC, MYERS_REP + " (top-K mode, via :318)", shape,
+            "myers_topk", *KERNEL_SITES["myers_topk"], shape,
             lambda: myers.myers_topk(*args),
             lambda: myers.myers_topk_plain(*args),
             _myers_bound(args, 36 * args[2].shape[0]),
@@ -574,8 +609,7 @@ class KernelCheck:
                  self.alpha, k * U, 512 + 2)
         cols = np.clip(np.minimum(w_len, ehi), 0, Wb).sum()
         self.record(
-            "window_valleys", "barbell_tpu_torch/csrc/window.cu",
-            "barbell_tpu/ops/pallas_window.py:51 (MODE_VALLEY, via :357)",
+            "window_valleys", *KERNEL_SITES["window_valleys"],
             f"[{H} lanes, {Wb}], m = {m}",
             lambda: window.window_valleys(*vargs),
             lambda: window.window_plain(
@@ -606,8 +640,7 @@ class KernelCheck:
         z = torch.zeros(H, dtype=torch.int32, device=self.dev)
         cols = np.where((end_j >= 0) & (end_j <= Wf), end_j, 0).sum()
         self.record(
-            "window_trace", "barbell_tpu_torch/csrc/window.cu",
-            "barbell_tpu/ops/pallas_window.py:51 (MODE_TRACE, via :402)",
+            "window_trace", *KERNEL_SITES["window_trace"],
             f"[{H} lanes, {Wf}], m = {m}",
             lambda: window.window_trace(*targs),
             lambda: tuple(window.window_plain(
@@ -654,8 +687,7 @@ class KernelCheck:
         iargs = (pat_top, bwin_t, end_top, gp.rel_bar_start, gp.rel_bar_end)
         z = torch.zeros(H, dtype=torch.int32, device=self.dev)
         self.record(
-            "window_interval", "barbell_tpu_torch/csrc/window.cu",
-            "barbell_tpu/ops/pallas_window.py:51 (MODE_INTERVAL, via :434)",
+            "window_interval", *KERNEL_SITES["window_interval"],
             f"[{H} lanes, {Wbc}], m = {plen}",
             lambda: window.window_interval(*iargs),
             lambda: window.window_plain(
@@ -683,10 +715,9 @@ class KernelCheck:
         bound = _bound(Pa * m + H * Wbc + 4 * H + 8 * H * pe,
                        cells * RANK_INT_PER_CELL, cells * RANK_F32_PER_CELL)
         ptx = _rank_ptxas(rank, m, W_pad)
-        src, rep = "barbell_tpu_torch/csrc/rank.cu", "barbell_tpu/ops/pallas_rank.py:55"
         if split:
             self.record(
-                "rank_pass1_split", src, rep + " (strand-split, via :223)",
+                "rank_pass1_split", *KERNEL_SITES["rank_pass1_split"],
                 f"[{H} lanes, {Wbc}] x {pe} patterns, m = {m}",
                 lambda: rank.rank_pass1_split(pats, bwin_t, b_len_t, H // 2),
                 lambda: rank.rank_pass1_plain(pats, bwin_t, b_len_t, split=H // 2),
@@ -694,7 +725,7 @@ class KernelCheck:
             )
         else:
             self.record(
-                "rank_pass1", src, rep + " (non-split, via :266)",
+                "rank_pass1", *KERNEL_SITES["rank_pass1"],
                 f"[{H} lanes, {Wbc}] x {pe} patterns, m = {m}",
                 lambda: rank.rank_pass1(pats, bwin_t, b_len_t),
                 lambda: rank.rank_pass1_plain(pats, bwin_t, b_len_t),
@@ -1795,6 +1826,442 @@ def check_profile(fq_ends, fq_whole, d, wrappers, smi, batches) -> None:
             f"{_sync_points(eng, batch)} (file:line: times)")
 
 
+# ------------------------------------------- upload, row buckets, stages
+
+
+class KernelCalls:
+    """Copies of the arguments of every kernel call the device calls
+    make while installed, in order; the calls go on to the wrappers,
+    which count their launches."""
+
+    def __init__(self):
+        import threading
+
+        from barbell_tpu_torch.ops import composite
+
+        self.mod = composite
+        self.orig = {n: getattr(composite, n) for n in KERNEL_SITES}
+        self.lock = threading.Lock()
+        self.calls = []
+
+    def __enter__(self):
+        for name, fn in self.orig.items():
+            def call(*args, _name=name, _fn=fn):
+                copy = tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                             for a in args)
+                with self.lock:
+                    self.calls.append((_name, copy))
+                return _fn(*args)
+
+            setattr(self.mod, name, call)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(self.mod, name, fn)
+
+
+def _wrapper(name):
+    from barbell_tpu_torch.ops import myers, rank, window
+
+    return getattr({"myers_topk": myers, "rank_pass1": rank,
+                    "rank_pass1_split": rank}.get(name, window), name)
+
+
+def _plain_of(name, args):
+    """The plain version's output for one captured call of ``name``, on
+    the call's own (card) tensors."""
+    from barbell_tpu_torch.ops import myers, rank, window
+
+    i32 = lambda x: x.to(torch.int32).contiguous()  # noqa: E731
+    if name == "myers_topk":
+        return myers.myers_topk_plain(*args)
+    if name == "window_valleys":
+        pat, win, wl, le, rp, elo, ehi, alpha, k, klmul = args
+        return window.window_plain(window.MODE_VALLEY, pat, win, i32(elo), i32(le),
+                                   i32(rp), i32(ehi), i32(wl), alpha, 0, 0, k, klmul)
+    if name == "window_trace":
+        pat, win, ej, le, rp, alpha, ra, rb = args
+        z = torch.zeros_like(ej, dtype=torch.int32)
+        return tuple(window.window_plain(window.MODE_TRACE, pat, win, i32(ej), i32(le),
+                                         i32(rp), z, z, alpha, ra, rb, 0, 0).unbind(1))
+    if name == "window_interval":
+        pats, win, ej, ia, ib = args
+        z = torch.zeros_like(ej, dtype=torch.int32)
+        return window.window_plain(window.MODE_INTERVAL, pats, win, i32(ej), z, z - 1,
+                                   z, z, window.UNIT, ia, ib, 0, 0)
+    return rank.rank_pass1_plain(*args[:3], args[3] if len(args) > 3 else 0)
+
+
+def _captured_bound(name, args):
+    """(bound_ms, bound_by) of one captured call, from its inputs (the
+    cells its output needs, as the kernel phases count them)."""
+    if name == "myers_topk":
+        return _myers_bound(args, 36 * args[2].shape[0])
+    pat, win, c = args[:3]
+    H, W = win.shape
+    m = pat.shape[-1]
+    if name == "window_valleys":
+        cols = int(torch.clamp(torch.minimum(c, args[6]), 0, W).sum())
+        return _bound(m + H * W + 56 * H, cols * m * WINDOW_PER_CELL["valley"])
+    if name in ("window_trace", "window_interval"):
+        cols = int(torch.where((c >= 0) & (c <= W), c, 0).sum())
+        if name == "window_trace":
+            return _bound(m + H * W + 24 * H, cols * m * WINDOW_PER_CELL["trace"])
+        return _bound(H * m + H * W + 28 * H, cols * m * WINDOW_PER_CELL["interval"])
+    Pa = pat.shape[0]
+    pe = Pa // 2 if name == "rank_pass1_split" else Pa
+    cells = pe * m * int(c.clamp(0, W + W % 2).sum())
+    return _bound(Pa * m + H * W + 4 * H + 8 * H * pe, cells * RANK_INT_PER_CELL,
+                  cells * RANK_F32_PER_CELL)
+
+
+def _batch_kernel_ms(calls, reps=10):
+    """{kernel: device ms} of one batch's captured calls, each call's
+    time from a CUDA-graph replay (:func:`_time`), summed by kernel."""
+    out = {}
+    for name, args in calls:
+        fn = _wrapper(name)
+        ms, _method = _time(lambda: fn(*args), reps)
+        out[name] = out.get(name, 0.0) + ms
+    return out
+
+
+def _first_batches(ends_reads, whole_reads):
+    """(path, engine factory, first batch, dispatch of the reference
+    rule with the blob) of the ends, extended and whole-read paths."""
+    from barbell_tpu_torch.models.pipeline import TorchDemuxEngine
+    from barbell_tpu_torch.models.twotier import make_ends_engine
+    from barbell_tpu_torch.stages.kit import kit_groups, kit_plan
+
+    def batch(reads):
+        return ([r for r, _s, _l in reads[:BATCH]], [s for _r, s, _l in reads[:BATCH]])
+
+    return (
+        ("ends", lambda **kw: make_ends_engine(kit_groups(KIT), kit_plan(KIT), device="cuda",
+                                               **kw), batch(ends_reads)),
+        ("extended", lambda **kw: TorchDemuxEngine(kit_groups(KIT, use_extended=True),
+                                                   device="cuda", **kw), batch(ends_reads)),
+        ("whole-read", lambda **kw: TorchDemuxEngine(kit_groups(KIT), device="cuda", **kw),
+         batch(whole_reads)),
+    )
+
+
+def _h2d_issued_mode():
+    """A dispatch mode that counts the host-to-device copies torch issues:
+    each ``_to_copy`` / ``copy_`` that reads a host tensor and writes one
+    on the card."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    copies = {torch.ops.aten._to_copy.default, torch.ops.aten.copy_.default}
+
+    class H2DIssued(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func in copies:
+                ins = [t for t in tree_leaves((args, kwargs)) if isinstance(t, torch.Tensor)]
+                outs = [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
+                if (any(t.device.type == "cpu" for t in ins)
+                        and any(t.device.type == "cuda" for t in outs)):
+                    self.n += 1
+            return out
+
+    return H2DIssued()
+
+
+def _h2d_copies(fn, tries: int = 3) -> tuple:
+    """Host-to-device copies during one ``fn()``, counted twice: the ones
+    torch issued (:func:`_h2d_issued_mode`) and the ``HtoD`` copy events
+    the card ran (a torch.profiler trace).  A trace that holds no kernel
+    of the batch has lost its device records (CUPTI drops a session's
+    records now and then): the run is made again, up to ``tries`` runs,
+    and then the check fails.  Returns (issued, ran, kernels traced)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with _h2d_issued_mode() as issued:
+                fn()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as fh:
+                events = json.load(fh)["traceEvents"]
+        kernels = sum(1 for e in events if e.get("cat") == "kernel")
+        if kernels:
+            ran = sum(1 for e in events
+                      if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", ""))
+            return issued.n, ran, kernels
+    raise AssertionError(f"the profiler kept no kernel of the batch in {tries} runs")
+
+
+def check_upload(ends_reads, whole_reads, wrappers, smi) -> dict:
+    """The one-blob upload against separate uploads on the first batch of
+    the ends, extended and whole-read paths: equal tables, the
+    reference's dispatch rule (the fused call only on the blob), the
+    host-to-device copies a batch (profiler) and where the host waits
+    for the card (sync debug mode).  Returns the launches of the blob
+    runs."""
+    for w in wrappers:
+        w.launches = 0
+    blob_launches = {}
+    for name, make, batch in _first_batches(ends_reads, whole_reads):
+        res = {}
+        for mono in (True, False):
+            eng = make(mono_upload=mono)
+            tiers = [getattr(eng, t) for t in ("shallow", "deep") if hasattr(eng, t)] or [eng]
+            before = {w.__name__: w.launches for w in wrappers}
+            table = eng.demux_batch_table(*batch)
+            torch.cuda.synchronize()
+            if mono:
+                for w in wrappers:
+                    blob_launches[w.__name__] = (blob_launches.get(w.__name__, 0)
+                                                 + w.launches - before[w.__name__])
+            groups = len(tiers[0].plans)
+            want = "single-fused" if mono and groups > 1 else "single"
+            if eng.last_dispatch != want:
+                raise AssertionError(f"[upload] {name}: dispatch {eng.last_dispatch}, "
+                                     f"the reference's rule gives {want}")
+            copies = _h2d_copies(lambda: eng.demux_batch_table(*batch))
+            waits = _sync_points(eng, batch)
+            ms = _wall_ms(lambda: eng.demux_batch_table(*batch))
+            res[mono] = (table, eng.last_dispatch, copies, waits, ms)
+        _tables_equal(res[True][0], res[False][0], f"[upload] {name}")
+        (_t, d1, c1, w1, ms1), (_t2, d0, c0, w0, ms0) = res[True], res[False]
+        if c1[:2] != (1, 1):
+            raise AssertionError(f"[upload] {name}: host-to-device copies a batch on "
+                                 f"the blob issued {c1[0]}, ran {c1[1]} ({c1[2]} kernels "
+                                 f"traced), want 1 and 1")
+        log(f"[upload] {name}: {len(batch[0])} reads, tables equal ({res[True][0].n_rows} "
+            f"rows); dispatch blob {d1}, separate {d0}; host-to-device copies a batch "
+            f"(issued, ran on the card) blob {c1[:2]}, separate {c0[:2]}; kernels traced "
+            f"blob {c1[2]}, separate {c0[2]}; the host waits for the card at blob "
+            f"{sum(w1.values())} {w1}, separate {sum(w0.values())} {w0}; wall ms a batch "
+            f"blob {ms1:.1f}, separate {ms0:.1f} (smoke figure; {smi})")
+    return blob_launches
+
+
+def check_fine_rows(ends_reads, whole_reads, wrappers, smi, engine) -> tuple:
+    """The first batches of the three paths with 1/8-octave row buckets
+    against powers of two: equal tables, the padded rows and hit
+    capacity a call both ways, each kernel's device ms a batch both ways
+    (CUDA-graph replays of the batch's captured calls); the whole-read
+    batch's fine-row calls each checked against its plain version on the
+    card, timed and bounded (kernel entries).  Returns (the fine runs'
+    launches by path, kernel entries)."""
+    launches, entries = {}, []
+    for name, make, batch in _first_batches(ends_reads, whole_reads):
+        res = {}
+        for fine in (False, True):
+            eng = make(fine_rows=fine)
+            for w in wrappers:
+                w.launches = 0
+            with BatchRecorder() as rec, KernelCalls() as cap:
+                table = eng.demux_batch_table(*batch)
+                torch.cuda.synchronize()
+            if fine:
+                launches[name] = {w.__name__: w.launches for w in wrappers}
+            res[fine] = (table, rec.batches, cap.calls, _batch_kernel_ms(cap.calls))
+        _tables_equal(res[True][0], res[False][0], f"[fine_rows] {name}")
+        shapes = {f: [(b["R_total"], b["H_cap"]) for b in res[f][1]] for f in (False, True)}
+        fmt = lambda d: ", ".join(f"{k} {v:.4f}" for k, v in sorted(d.items()))  # noqa: E731
+        log(f"[fine_rows] {name}: tables equal ({res[True][0].n_rows} rows); (R_total, "
+            f"H_cap) a call pow2 {shapes[False]}, fine {shapes[True]}; launches "
+            f"{launches[name]}; kernel ms a batch pow2 {{{fmt(res[False][3])}}} = "
+            f"{sum(res[False][3].values()):.4f}, fine {{{fmt(res[True][3])}}} = "
+            f"{sum(res[True][3].values()):.4f} ({smi})")
+        if name == "whole-read":
+            kc = KernelCheck(engine, "fine-rows whole-read", SEED + 6)
+            for kname, args in res[True][2]:
+                src, rep = KERNEL_SITES[kname]
+                if kname == "myers_topk":
+                    ptx = (f"myers_kernelILi{args[0].shape[1]}ELb1EE",)
+                    shape = f"rows [{args[2].shape[0]}, {args[2].shape[1]}], m = {args[1]}"
+                elif kname.startswith("rank"):
+                    from barbell_tpu_torch.ops import rank
+
+                    H, W = args[1].shape
+                    ptx = _rank_ptxas(rank, args[0].shape[1], W + W % 2)
+                    shape = f"[{H} lanes, {W}] x {args[0].shape[0]} patterns"
+                else:
+                    from barbell_tpu_torch.ops import window
+
+                    mode = {"window_valleys": window.MODE_VALLEY,
+                            "window_trace": window.MODE_TRACE}.get(kname, window.MODE_INTERVAL)
+                    H, W = args[1].shape
+                    ptx = _window_ptxas(window, mode, args[0].shape[-1], W)
+                    shape = f"[{H} lanes, {W}], m = {args[0].shape[-1]}"
+                fn = _wrapper(kname)
+                kc.record(kname, src, rep, shape + " (captured, fine rows)",
+                          lambda fn=fn, a=args: fn(*a), lambda n=kname, a=args: _plain_of(n, a),
+                          _captured_bound(kname, args), ptx, reps=5)
+            entries += kc.entries
+    return launches, entries
+
+
+def check_pack1(ends_reads, whole_reads, wrappers) -> dict:
+    """``BARBELL_PACK_MODE=1`` (padded 2-bit rows, uploaded metadata)
+    against the default pack mode 2 on the first ends and whole-read
+    batches: equal tables.  Returns the launches of the mode-1 runs."""
+    launches = {w.__name__: 0 for w in wrappers}
+    for name, make, batch in _first_batches(ends_reads, whole_reads):
+        if name == "extended":
+            continue
+        want = make().demux_batch_table(*batch)
+        os.environ["BARBELL_PACK_MODE"] = "1"
+        try:
+            before = {w.__name__: w.launches for w in wrappers}
+            with CallSpy() as spy:
+                got = make().demux_batch_table(*batch)
+            torch.cuda.synchronize()
+        finally:
+            del os.environ["BARBELL_PACK_MODE"]
+        for w in wrappers:
+            launches[w.__name__] += w.launches - before[w.__name__]
+        if set(spy.calls) != {(1, "wire")}:
+            raise AssertionError(f"[pack1] {name}: fused calls {spy.calls}")
+        _tables_equal(got, want, f"[pack1] {name}")
+        log(f"[pack1] {name}: BARBELL_PACK_MODE=1, calls {sorted(set(spy.calls))}: "
+            f"table = pack mode 2's ({want.n_rows} rows)")
+    return launches
+
+
+#: hit lanes of a full ends-path batch (its H_cap)
+H_ENDS = 2816
+
+
+def _require(launches, names, what):
+    """Raises unless each kernel in ``names`` launched in the run."""
+    missing = [n for n in names if launches.get(n, 0) <= 0]
+    if missing:
+        raise AssertionError(f"{what}: kernels {missing} never launched")
+
+
+def check_stage_ops(ends_reads, wrappers) -> dict:
+    """The staged composites on the card at the ends shapes (the first
+    ends batch's shallow-tier rows, nibble-packed): ``flank_scan`` over
+    its rows and rc twins, ``flank_trace`` over its hits, ``barcode_rank``
+    over each hit's mask region widened by the padding: each equal to
+    its CPU route (the kernels' plain versions) on the same inputs, and
+    the traces and ranks to their ``_reference`` variants (move table +
+    traceback, on the card) where the lane is valid.  Returns the
+    launches of the card routes."""
+    from barbell_tpu_torch import PADDING
+    from barbell_tpu_torch.models.pipeline import TorchDemuxEngine
+    from barbell_tpu_torch.ops import composite as comp
+    from barbell_tpu_torch.stages.kit import kit_groups
+
+    eng = TorchDemuxEngine(kit_groups(KIT), ends_window=(512, 512), device="cuda")
+    gp = eng.plans[0]
+    lens = np.array([len(s) for _r, s, _l in ends_reads[:BATCH]], dtype=np.int64)
+    seqs = [s for _r, s, _l in ends_reads[:BATCH]]
+    L = eng._choose_L(lens)
+    step = L - PADDING - eng.halo
+    plan = eng._plan(lens, L, step)
+    R_host, S_pad = plan.R_host, plan.F
+    mat = eng._materialize(plan, seqs, lens, L, R_host, S_pad, force_nibble=True)
+    meta = mat.meta
+    m, k, K = gp.m, gp.k_units, eng.K
+    dev, cpu = eng.device, torch.device("cpu")
+    tsc, tec = meta[:, comp.M_TSC], meta[:, comp.M_TEC]
+    ts, te = meta[:, comp.M_TSTART] != 0, meta[:, comp.M_TEND] != 0
+    lo, hi = meta[:, comp.M_LO], meta[:, comp.M_HI]
+    cols = dict(start_col=np.where(ts, tsc, -1), end_col=np.where(te, tec, L + 2),
+                lo=lo, hi=hi, emit_lo=np.where(ts, tsc + m + k + 2, lo),
+                emit_hi=np.where(te, np.minimum(hi, tec - 2), hi))
+
+    def on(d, a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(d)
+
+    launches = {w.__name__: 0 for w in wrappers}
+
+    def run(what, card, host, ref=None, valid=None):
+        before = {w.__name__: w.launches for w in wrappers}
+        got = card()
+        torch.cuda.synchronize()
+        used = {w.__name__: w.launches - before[w.__name__] for w in wrappers
+                if w.launches > before[w.__name__]}
+        for n, c in used.items():
+            launches[n] += c
+        t0 = time.perf_counter()
+        want = host()
+        t_cpu = time.perf_counter() - t0
+        tup = lambda x: x if isinstance(x, tuple) else (x,)  # noqa: E731
+        _diff([g.cpu() for g in tup(got)], [w.cpu() for w in tup(want)])
+        extra = ""
+        if ref is not None:
+            r = ref()
+            _diff((got[valid],), (r[valid],))
+            extra = f"; = its _reference on {int(valid.sum())} valid lanes"
+        log(f"[stage_ops] {what}: card = CPU route ({t_cpu:.1f}s on the CPU){extra}; "
+            f"launches {used}")
+        return got
+
+    alpha = eng.alpha_scaled
+    args = {d: (gp.tensors.flank.to(d), gp.tensors.patw.to(d), on(d, mat.host_packed),
+                on(d, mat.simple_idx[:S_pad]), *(on(d, cols[c]) for c in cols))
+            for d in (dev, cpu)}
+    scan = {}
+
+    def flank_scan(d):
+        scan[d.type] = comp.flank_scan(*args[d], alpha, K=K, m=m, k_units=k)
+        return scan[d.type].packed
+
+    packed = run(f"flank_scan rows [{R_host} + {S_pad} rc twins, {L}] (nibble-packed), "
+                 f"K = {K}", lambda: flank_scan(dev), lambda: flank_scan(cpu))
+    rows = scan[dev.type].rows
+    pos, cost, valid, _count = (x.cpu().numpy() for x in comp.unpack_flank_scan(packed, K))
+    # the first hits, as many as a full ends batch's lanes
+    hrow, slot = (a[:H_ENDS] for a in np.nonzero(valid))
+    hcol = pos[hrow, slot]
+    Wf = gp.span
+    s_col = np.maximum(tsc[hrow], hcol - Wf)
+    end_j = (hcol - s_col).astype(np.int32)
+    ledge = (ts[hrow] & (s_col == tsc[hrow])).astype(np.int32)
+    rpos = np.where(te[hrow] & (hcol == tec[hrow]), end_j, -1).astype(np.int32)
+    hv = np.ones(len(hrow), dtype=bool)
+    tr_np = (hrow.astype(np.int32), s_col.astype(np.int32), ledge, rpos, end_j, hv)
+    tr_args = {d: [on(d, a) for a in tr_np] for d in (dev, cpu)}
+    ra, rb = gp.mask_start, gp.mask_end
+    rows_on = {dev: rows, cpu: scan[cpu.type].rows}
+
+    def trace(d, fn=comp.flank_trace):
+        return fn(gp.tensors.flank.to(d), rows_on[d], *tr_args[d], ra, rb, alpha, m=m, W=Wf)
+
+    tr = run(f"flank_trace [{len(hrow)} lanes, {Wf}]", lambda: trace(dev),
+             lambda: trace(cpu), lambda: trace(dev, comp.flank_trace_reference),
+             torch.from_numpy(hv).to(dev))
+    tr = tr.cpu().numpy()
+    Wb = gp.barcode_window
+    has = tr[:, 3] != 0
+    b_start = np.maximum(0, s_col + tr[:, 1] - PADDING).astype(np.int32)
+    b_len = np.where(has, np.minimum(Wb, tr[:, 2] - tr[:, 1] + 1 + 2 * PADDING), 0)
+    b_len = b_len.astype(np.int32)
+    pats = gp.tensors.patterns_all[: gp.n_patterns]
+    scal = (gp.k1_scaled, gp.rel_bar_start, gp.rel_bar_end,
+            float(np.float32(gp.perfect)), float(np.float32(eng.min_score)),
+            float(np.float32(eng.min_score_diff)))
+    br_args = {d: [on(d, a) for a in (hrow.astype(np.int32), b_start, b_len, has)]
+               for d in (dev, cpu)}
+
+    def rank(d, fn=comp.barcode_rank):
+        return fn(pats.to(d), rows_on[d], *br_args[d], *scal, m=gp.plen, W=Wb)
+
+    br = run(f"barcode_rank [{len(hrow)} lanes, {Wb}] x {gp.n_patterns} patterns",
+             lambda: rank(dev), lambda: rank(cpu),
+             lambda: rank(dev, comp.barcode_rank_reference), torch.from_numpy(has).to(dev))
+    log(f"[stage_ops] barcode_rank: {int(br[:, 1].sum())} of {int(has.sum())} lanes with "
+        f"a region accepted")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -1906,6 +2373,23 @@ def main() -> int:
             check_profile(fq_ends, fq_whole, d, wrappers, smi, [
                 ([r for r, _s, _l in reads[:BATCH]], [s for _r, s, _l in reads[:BATCH]])
                 for reads in (ends_reads, whole_reads)])
+        with timed("upload"):
+            by_path["upload"] = check_upload(ends_reads, whole_reads, wrappers, smi)
+            _require(by_path["upload"], on_path, "[upload]")
+        with timed("fine_rows"):
+            fine, entries = check_fine_rows(ends_reads, whole_reads, wrappers, smi, engine)
+            for name, got in fine.items():
+                _require(got, on_path[:4], f"[fine_rows] {name}")
+                _require({"rank": got["rank_pass1_split"] + got["rank_pass1"]},
+                         ["rank"], f"[fine_rows] {name}")
+            by_path["fine_rows (whole-read)"] = fine["whole-read"]
+            kernels += entries
+        with timed("pack1"):
+            by_path["pack1"] = check_pack1(ends_reads, whole_reads, wrappers)
+            _require(by_path["pack1"], on_path, "[pack1]")
+        with timed("stage_ops"):
+            by_path["stage_ops"] = check_stage_ops(ends_reads, wrappers)
+            _require(by_path["stage_ops"], on_path[:4] + ["rank_pass1"], "[stage_ops]")
 
     with timed("whole-read kernels"):
         kernels += check_batch_kernels(engine, whole_batches, "whole-read", SEED + 2)
@@ -1920,7 +2404,8 @@ def main() -> int:
                           sweep=True)["inputs"] = "captured"
             kernels += kc.entries
     path_runs = {"ends": ("kit",), "whole-read": ("annotate", "kit_full_scan"),
-                 "extended": ("kit_extended",)}
+                 "extended": ("kit_extended",),
+                 "fine-rows whole-read": ("fine_rows (whole-read)",)}
     for entry in kernels:
         n = entry["name"]
         entry["launches_by_path"] = {p: c[n] for p, c in by_path.items()}

@@ -27,7 +27,8 @@ names = [m.name for m in pkgutil.walk_packages(
     barbell_tpu_torch.__path__, "barbell_tpu_torch.")]
 assert {"barbell_tpu_torch.sim.compare", "barbell_tpu_torch.sim.ingest",
         "barbell_tpu_torch.parallel.mesh",
-        "barbell_tpu_torch.parallel.distributed"} <= set(names)
+        "barbell_tpu_torch.parallel.distributed",
+        "barbell_tpu_torch.ops.device"} <= set(names)
 for name in names:
     importlib.import_module(name)
 from barbell_tpu_torch.parallel.distributed import initialize
@@ -57,6 +58,18 @@ assert min(rows) >= 1, rows
 mesh = TorchDemuxEngine(groups, max_row_len=256, devices=["cpu"] * 2)
 assert mesh.demux_batch_table(["r0", "r1"], [read, read]).n_rows == 2 * rows[1]
 assert mesh.last_dispatch == "sharded"
+# the object API, and the plain flank stages sharded over two devices
+assert len(engine.demux_batch(["r0"], [read])[0]) == rows[1]
+import torch
+from barbell_tpu_torch.parallel.mesh import shard_rows, sharded_flank_step
+text = torch.zeros((2, 256), dtype=torch.uint8)
+flank = torch.from_numpy(groups[0].flank_masks.astype("uint8"))
+text[:, 10 : 10 + flank.shape[0]] = flank
+n = torch.full((2,), 256, dtype=torch.int32)
+z = torch.zeros(2, dtype=torch.int32)
+hits, found = sharded_flank_step(["cpu"] * 2, K=4)(
+    flank, *shard_rows(["cpu"] * 2, text, z, n, z, n), 2560 * 20, 1024)
+assert int(found) == 2 and [h.pos.shape for h in hits] == [(1, 4)] * 2
 
 d = tempfile.mkdtemp()
 fq, tsv, pat, qf = (os.path.join(d, f)
