@@ -18,6 +18,7 @@ Any build or load failure raises; there is no fallback.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -227,7 +228,36 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
 
 
+_recording = threading.local()
+
+
 def count_launch(wrapper) -> None:
-    """Add one to ``wrapper.launches`` (wrappers run on worker threads)."""
+    """Add one to ``wrapper.launches`` (wrappers run on worker threads);
+    inside :func:`recording_launches` on this thread, note the launch
+    instead: a CUDA-graph capture runs no kernel, its replays do."""
+    rec = getattr(_recording, "wrappers", None)
+    if rec is not None:
+        rec.append(wrapper)
+        return
     with _count_lock:
         wrapper.launches += 1
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """The wrappers whose kernels this thread enqueues inside, in order,
+    noted and not counted (:func:`count_replay` counts them each time
+    the captured graph runs)."""
+    prev = getattr(_recording, "wrappers", None)
+    _recording.wrappers = rec = []
+    try:
+        yield rec
+    finally:
+        _recording.wrappers = prev
+
+
+def count_replay(wrappers) -> None:
+    """Count one launch on each wrapper of a captured graph that ran."""
+    with _count_lock:
+        for w in wrappers:
+            w.launches += 1

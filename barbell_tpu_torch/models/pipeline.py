@@ -44,6 +44,13 @@ and its fused call is enqueued there before any block is fetched
 (``last_dispatch == "sharded"``, or ``"sharded-fused"`` for several
 groups); the blocks' hit records merge group-major, block-minor.
 
+On the card each shard's device call is one replay of a CUDA graph
+captured once per static key (shapes, pack mode, group constants; the
+counterpart of the JAX engine's ``jax.jit`` cache), with the batch's
+upload copied into the graph's static inputs first
+(:mod:`~barbell_tpu_torch.models.graphs`; ``cuda_graphs = False``, and
+the CPU, run the call eagerly).
+
 ``BARBELL_TIMING=1`` accumulates each phase's wall time into
 :data:`TIMINGS` (:func:`timing_report`): ``encode``, ``pack_upload``,
 ``demux_call.dispatch`` (enqueue of the fused call), ``demux_call.fetch``
@@ -57,10 +64,10 @@ import ctypes
 import os
 import threading
 import time
-from collections import deque
+from collections import Counter, deque
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -73,6 +80,7 @@ from ..utils import dna
 from . import hittable
 from .barcodes import BarcodeGroup
 from .demux import COLLAPSE_OVERLAP, Demuxer
+from .graphs import GraphCache, Instance
 from ..parallel.mesh import resolve_devices
 from .groups import GroupPlan, group_tensors_from_numpy
 from .hittable import HitTable
@@ -231,8 +239,9 @@ class _Mat:
 class _DevBatch:
     """One shard's uploaded arrays (``parts``, named as
     :func:`~barbell_tpu_torch.ops.composite.batch_rows` reads them: views
-    of one uploaded blob, or one upload each), the device they are on,
-    and the shapes every group's call on them shares."""
+    of one uploaded ``blob`` laid out by ``spans``, or one upload each),
+    the device they are on, and the shapes every group's call on them
+    shares."""
 
     parts: Dict[str, torch.Tensor]
     device: torch.device
@@ -241,6 +250,16 @@ class _DevBatch:
     step: int
     S_pad: int
     R_total: int
+    blob: Optional[torch.Tensor] = None
+    spans: Optional[tuple] = None
+
+
+class _Launched(NamedTuple):
+    """A dispatched call's output on its device and, when it came from
+    a captured graph, the instance to hand back after the fetch."""
+
+    out: torch.Tensor
+    inst: Optional[Instance]
 
 
 class TorchDemuxEngine:
@@ -260,7 +279,10 @@ class TorchDemuxEngine:
     shard's arrays as one blob; ``cat_align`` (default
     ``BARBELL_CAT_ALIGN``, else 64) is the concatenated rows' byte
     alignment.  The three switches are attributes, settable between
-    batches."""
+    batches, and so are ``fuse_groups`` and ``cuda_graphs`` (on when
+    the engine runs on the card: each device call replays the CUDA graph
+    captured for its static key, :mod:`~barbell_tpu_torch.models.graphs`;
+    off, the call runs eagerly)."""
 
     def __init__(
         self,
@@ -308,6 +330,10 @@ class TorchDemuxEngine:
         #: False dispatches each group of a batch on its own: the
         #: per-group path the fused call is held equal to
         self.fuse_groups = True
+        #: each batch's device call replays the CUDA graph captured for
+        #: its static key (on by default on the card); False runs the
+        #: call eagerly, op by op: the path the graphs are held equal to
+        self.cuda_graphs = any(d.type == "cuda" for d in self.devices + [self.device])
         #: the last batch's dispatch: "single-fused" (every group in one
         #: device call, on the one-blob upload) or "single" (a call per
         #: group); "sharded-fused" or "sharded" when the batch was split
@@ -341,6 +367,11 @@ class TorchDemuxEngine:
                     for p in self.plans
                 ]
         self.halo = max(p.span for p in self.plans) + PADDING + 2
+        # a batch's shards on one device each hold one instance of the
+        # same key: the pool covers every worker thread's shards
+        shards = max(Counter(str(torch.empty(0, device=d).device)
+                             for d in self.devices).values())
+        self._graphs = GraphCache(per_key=DEFAULT_PIPELINE_DEPTH * shards)
         self._fallback: Optional[Demuxer] = None
         # Sticky hit-record capacity: the first overflow raises it for
         # every later batch (one retry instead of one per batch).
@@ -508,7 +539,7 @@ class TorchDemuxEngine:
                 pending = [(g, [self._dispatch((g,), bt, H_cap) for bt in batches])
                            for g in self.plans]
         for gplan, outs in pending:
-            if isinstance(outs[0], torch.Tensor):  # the fused path fetched
+            if isinstance(outs[0], _Launched):  # the fused path fetched
                 with _phase("demux_call.fetch"):
                     outs = [self._fetch(o) for o in outs]
             wcols, wbits = self._rec_wire(gplan, L, R_total_pad)
@@ -574,16 +605,17 @@ class TorchDemuxEngine:
             built = [comp.build_blob_named(*a.items()) for a in arrays]
             spans = built[0][1]
             blobs = torch.from_numpy(np.stack([b for b, _spans in built]))
-            parts = [comp._blob_parts(blobs[d].to(dev), spans)
-                     for d, dev in enumerate(devices)]
+            blobs = [blobs[d].to(dev) for d, dev in enumerate(devices)]
+            parts = [comp._blob_parts(b, spans) for b in blobs]
         else:
+            spans, blobs = None, [None] * len(devices)
             parts = [{k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
                       for k, v in a.items()} for a, dev in zip(arrays, devices)]
         return [
             _DevBatch(parts=p, device=p["host_packed"].device,
                       pack_mode=m.pack_mode, L=L, step=step, S_pad=S_pad,
-                      R_total=R_host_pad + S_pad)
-            for p, m in zip(parts, mats)
+                      R_total=R_host_pad + S_pad, blob=b, spans=spans)
+            for p, b, m in zip(parts, blobs, mats)
         ]
 
     def _partition_reads(self, lens, L: int, step: int, D: int):
@@ -1159,22 +1191,55 @@ class TorchDemuxEngine:
         return comp.unpack_rec_np(out_np, cap, wbits)
 
     def _dispatch(self, gplans: Sequence[GroupPlan], batch: _DevBatch,
-                  H_cap: int) -> torch.Tensor:
+                  H_cap: int) -> _Launched:
         """Enqueue one device call running ``gplans`` on ``batch`` (the
         batch prefix once, then each group) on the batch's device; its
-        groups' packed outputs, concatenated in order, stay there."""
-        return comp.demux_call_fused(
-            [self._group_args(g, batch.step, batch.device) for g in gplans],
-            batch.parts, K=self.K, H_cap=H_cap, pack_mode=batch.pack_mode,
-            L_rows=batch.L, S_pad=batch.S_pad, ends_w=self.ends_wl,
-            ends_wr=self.ends_wr, halo=self.halo, padding=PADDING,
-            cat_align=self.cat_align,
-        )
+        groups' packed outputs, concatenated in order, stay there.  With
+        ``cuda_graphs`` the call is a replay of its key's captured graph
+        (:mod:`~barbell_tpu_torch.models.graphs`)."""
+        gargs = [self._group_args(g, batch.step, batch.device) for g in gplans]
+        statics = dict(K=self.K, H_cap=H_cap, pack_mode=batch.pack_mode,
+                       L_rows=batch.L, S_pad=batch.S_pad, ends_w=self.ends_wl,
+                       ends_wr=self.ends_wr, halo=self.halo, padding=PADDING,
+                       cat_align=self.cat_align)
+        if not self.cuda_graphs:
+            return _Launched(comp.demux_call_fused(gargs, batch.parts, **statics),
+                             None)
+        if batch.blob is not None:
+            inputs = {"blob": batch.blob}
 
-    @staticmethod
-    def _fetch(out: torch.Tensor) -> np.ndarray:
-        """A dispatched call's output on the host (waits for the device)."""
-        return out.cpu().numpy()
+            def fn(inp):
+                return comp.demux_call_fused(gargs, inp["blob"],
+                                             spans=batch.spans, **statics)
+        else:
+            inputs = batch.parts
+
+            def fn(inp):
+                return comp.demux_call_fused(gargs, inp, **statics)
+        # what the JAX engine's jit keys on (each group's statics, the
+        # call's, the blob's spans or the parts' shapes), plus the device
+        # and the group tensors' addresses, which the graph bakes in
+        key = (
+            str(batch.device),
+            tuple((g.gi, g.gf, g.m, g.k_units, tuple(gp.patw.ravel().tolist()), g.Wf,
+                   g.plen, g.Wb, g.P,
+                   tuple(t.data_ptr() for t in (g.flank, g.patw, g.patterns_all)))
+                  for g, gp in zip(gargs, gplans)),
+            tuple(sorted(statics.items())),
+            batch.spans,
+            tuple((n, tuple(t.shape), str(t.dtype)) for n, t in inputs.items()),
+        )
+        return _Launched(*self._graphs.run(key, fn, inputs))
+
+    def _fetch(self, launched: _Launched) -> np.ndarray:
+        """A dispatched call's output on the host (waits for the device);
+        a captured graph's instance goes back to its pool after the
+        copy."""
+        try:
+            return launched.out.cpu().numpy()
+        finally:
+            if launched.inst is not None:
+                self._graphs.release(launched.inst)
 
     @staticmethod
     def _gather_packet(rec, row_read, meta):

@@ -99,6 +99,16 @@ class TwoTierDemuxEngine:
         :attr:`TorchDemuxEngine.last_dispatch`)."""
         return self.shallow.last_dispatch
 
+    @property
+    def cuda_graphs(self) -> bool:
+        """Both tiers replay captured CUDA graphs (see
+        :attr:`TorchDemuxEngine.cuda_graphs`); setting it sets both."""
+        return self.shallow.cuda_graphs
+
+    @cuda_graphs.setter
+    def cuda_graphs(self, on: bool) -> None:
+        self.shallow.cuda_graphs = self.deep.cuda_graphs = bool(on)
+
     def demux_batch(
         self, read_ids: List[str], seqs: List[bytes]
     ) -> List[List[BarbellMatch]]:
@@ -159,5 +169,6 @@ class TwoTierDemuxEngine:
 
     def warm_deep(self) -> None:
         """Run the deep tier once (one rescue-sized call of a dummy read)
-        so its first real trigger mid-stream pays no first-call costs."""
+        so its first real trigger mid-stream pays no first-call costs:
+        with ``cuda_graphs`` that call captures the rescue key's graph."""
         self._deep_call(["__warm"], [self._dummy])

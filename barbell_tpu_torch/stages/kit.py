@@ -35,7 +35,7 @@ from .pattern import pattern_from_str
 from .trim import LabelConfig, trim_matches
 
 __all__ = ["KitRunConfig", "demux_using_kit", "ends_plan_for_patterns",
-           "kit_groups", "kit_plan"]
+           "ends_window_for_patterns", "kit_groups", "kit_plan"]
 
 
 @dataclass
@@ -147,6 +147,23 @@ def _round_w(depth: int, halo: int) -> int:
     ``test_claim_boundary_exact`` pins the exact claim edges on both
     strands/sides."""
     return -(-(depth + halo + 1) // 128) * 128
+
+
+def ends_window_for_patterns(patterns, groups) -> Optional[int]:
+    """Single-tier symmetric ends window W covering every hit the
+    patterns can accept (incl. full ``@prev_left`` chains), or ``None``
+    when a pattern is not positionally bounded.  The kit runner now
+    uses :func:`ends_plan_for_patterns` (per-side + two-tier); this is
+    the conservative one-window form (``annotate --ends-window`` docs,
+    tests)."""
+    b = _ends_bounds(patterns, groups)
+    if b is None:
+        return None
+    first, right, deep, _chain_hi, _ext, halo = b
+    W = _round_w(max(first, right, deep), halo)
+    if W > 8192:  # exceeds the engine row-width ceiling: no benefit
+        return None
+    return W
 
 
 def ends_plan_for_patterns(patterns, groups):

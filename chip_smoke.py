@@ -58,29 +58,40 @@ Phases (any failure exits non-zero and prints no result line):
    whole-read set, merged byte-identical to the one-process run;
 9. tracing (``[profile]``) — one warm pass of the ends, extended and
    whole-read (``annotate``) paths under ``BARBELL_TIMING`` and
-   ``BARBELL_PROFILE_DIR``: phase report, device busy share, kernel time
-   by name, launches a batch, fetch against dispatch; the TSV equals the
-   untraced pass's;
-10. the one-blob upload (``[upload]``) — the first batch of the ends,
+   ``BARBELL_PROFILE_DIR``, with CUDA graphs and then eager: phase
+   report, device busy share, kernel time by name, launches a batch
+   (``cudaLaunchKernel`` and ``cudaGraphLaunch`` among them), graphs
+   captured and replayed, peak reserved memory, fetch against dispatch;
+   the TSV equals the untraced pass's;
+10. CUDA graphs (``[graphs]``) — the first three batches of the ends,
+   extended and whole-read paths and one forced overflow retry, graphs
+   against the eager call: every device call's buffer byte-equal and
+   every table equal on a first pass (captures), a second (no capture,
+   one ``cudaGraphLaunch`` a shard a device call) and a third through
+   the worker threads; dispatch s, wall ms, busy share and launch calls
+   of the second pass against an eager pass, and the reserved memory
+   after the first pass and with the cache full;
+11. the one-blob upload (``[upload]``) — the first batch of the ends,
    extended and whole-read paths with ``mono_upload`` on (the default)
    and off: equal tables, the reference's dispatch rule (one fused call
    of both groups only on the blob), one host-to-device copy a batch on
-   the blob (profiler trace) against one an array, and where the host
-   waits for the card (sync debug mode);
-11. row buckets (``[fine_rows]``) — the same batches with 1/8-octave row
+   the blob (profiler trace) against one an array, the copies into the
+   graphs' static inputs, and where the host waits for the card (sync
+   debug mode);
+12. row buckets (``[fine_rows]``) — the same batches with 1/8-octave row
    buckets against powers of two: equal tables, the padded rows and hit
    capacity of each call both ways, each kernel's device ms a batch both
    ways (CUDA-graph replays of the batch's captured calls); each kernel
    call of the whole-read batch with fine rows against its plain version
    on the card, timed and bounded ("fine-rows whole-read" entries);
-12. ``[pack1]`` — ``BARBELL_PACK_MODE=1`` (padded 2-bit rows) against
+13. ``[pack1]`` — ``BARBELL_PACK_MODE=1`` (padded 2-bit rows) against
    pack mode 2 on the first ends and whole-read batches: equal tables;
-13. the staged composites (``[stage_ops]``) — ``flank_scan``,
+14. the staged composites (``[stage_ops]``) — ``flank_scan``,
    ``flank_trace`` and ``barcode_rank`` on the card at the ends shapes
    (the first ends batch's rows, its first 2816 hits), each equal to its
    CPU route (the kernels' plain versions) on the same inputs, the trace
    and the rank to their ``_reference`` variants on the card;
-14. kernels at the whole-read paths' and the extended path's shapes,
+15. kernels at the whole-read paths' and the extended path's shapes,
    recorded from their batches (the extended ones with the fusion
    template's flank and patterns), and the Myers kernel on the
    arguments of one full batch of the ends path, the extended path and
@@ -92,7 +103,10 @@ spawned worker processes; the ends and whole-read sets are simulated
 side by side.
 
 Every path runs with each kernel's launch count set to 0 just before it
-and read just after; every kernel of the path must have launched.
+and read just after; every kernel of the path must have launched.  The
+engines run with CUDA graphs (their default on the card) wherever a
+phase does not say otherwise: a launch count counts kernels that ran,
+in an eager call or in a graph's replay.
 Each path must assign >= 0.99 of the reads with >= 0.99 correct against
 the simulator's truth, and write stage files byte-identical to the
 scalar oracle backend on its first 128 reads (the whole-read set's
@@ -133,6 +147,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 
@@ -1030,7 +1045,10 @@ def _launches_of(calls) -> dict:
 class MyersCapture:
     """Keeps a copy of the arguments of the largest ``myers_topk`` call
     (one full batch's) that the fused device call makes while installed;
-    the call itself goes on to the wrapper, which counts its launch."""
+    the call itself goes on to the wrapper, which counts its launch.
+    Calls made while a CUDA graph is captured are passed over: their
+    tensors hold no data yet, and the graph's replays rewrite them (the
+    eager first use of each graph runs the same call on real data)."""
 
     def __init__(self):
         import threading
@@ -1046,6 +1064,8 @@ class MyersCapture:
         orig = self.orig
 
         def call(patw, m, rows, emit_lo, emit_hi, k_units, klmul):
+            if torch.cuda.is_current_stream_capturing():
+                return orig(patw, m, rows, emit_lo, emit_hi, k_units, klmul)
             with self.lock:
                 if self.args is None or rows.numel() > self.args[2].numel():
                     self.args = (patw.clone(), m, rows.clone(), emit_lo.clone(),
@@ -1215,7 +1235,9 @@ def check_extended_launches(batches, launches):
 
 class CallSpy:
     """Records the pack mode and metadata layout of every fused device
-    call (``composite.demux_call_fused``) while installed."""
+    call (``composite.demux_call_fused``) while installed; on the blob
+    the layout is read from its spans.  Under CUDA graphs a key's first
+    use calls it (eagerly, then to capture) and its replays do not."""
 
     def __init__(self):
         from barbell_tpu_torch.ops import composite
@@ -1228,7 +1250,8 @@ class CallSpy:
         orig, calls = self.orig, self.calls
 
         def call(groups, parts, **kw):
-            calls.append((kw["pack_mode"], "desc" if "rowdesc" in parts else "wire"))
+            names = [n for n, _off, _shape in kw["spans"]] if kw.get("spans") else parts
+            calls.append((kw["pack_mode"], "desc" if "rowdesc" in names else "wire"))
             return orig(groups, parts, **kw)
 
         self.mod.demux_call_fused = call
@@ -1348,7 +1371,7 @@ def check_fused(ends_reads, wrappers, smi, pool) -> None:
          _two_construct_reads(pcr, N_FUSED, SEED + 6, fusion=False)),
     )
     for name, groups, eng, (ids, seqs) in inputs:
-        tiers = [getattr(eng, t) for t in ("shallow", "deep") if hasattr(eng, t)] or [eng]
+        tiers = _tiers(eng)
         for w in wrappers:
             w.launches = 0
         fused = eng.demux_batch_table(ids, seqs)
@@ -1734,14 +1757,62 @@ def _sync_points(engine, batch) -> dict:
     return found
 
 
+def _runtime_calls(runtime, name) -> int:
+    """Calls of the CUDA runtime function ``name`` in a trace's
+    ``runtime`` table (versioned entry points, ``_v10000`` and the like,
+    included)."""
+    return sum(n for k, (n, _ms) in runtime.items() if k.split("_v")[0] == name)
+
+
+@contextlib.contextmanager
+def _eager_engines():
+    """Every engine made inside runs its device calls eagerly
+    (``cuda_graphs = False``): the engines the stages make themselves."""
+    from barbell_tpu_torch.models.pipeline import TorchDemuxEngine
+
+    orig = TorchDemuxEngine.__init__
+
+    def init(self, *args, **kw):
+        orig(self, *args, **kw)
+        self.cuda_graphs = False
+
+    TorchDemuxEngine.__init__ = init
+    try:
+        yield
+    finally:
+        TorchDemuxEngine.__init__ = orig
+
+
+@contextlib.contextmanager
+def _graph_caches():
+    """The graph caches of the engines made inside (their capture and
+    replay counts)."""
+    from barbell_tpu_torch.models import graphs
+
+    made, orig = [], graphs.GraphCache.__init__
+
+    def init(self, *args, **kw):
+        orig(self, *args, **kw)
+        made.append(self)
+
+    graphs.GraphCache.__init__ = init
+    try:
+        yield made
+    finally:
+        graphs.GraphCache.__init__ = orig
+
+
 def check_profile(fq_ends, fq_whole, d, wrappers, smi, batches) -> None:
     """One warm pass each of the ends (``kit``), extended (``kit
     --use-extended``) and whole-read (``annotate --kit``) paths under
-    ``BARBELL_TIMING`` and ``BARBELL_PROFILE_DIR``: the trace is written
-    and the TSV equals the untraced pass's; prints the phase report, the
-    device busy share (the union of the trace's kernel and copy intervals
-    over the pass's wall time, under the profiler), the kernel time by
-    name, the launches a batch, the fetch against the dispatch and the
+    ``BARBELL_TIMING`` and ``BARBELL_PROFILE_DIR``, with CUDA graphs (the
+    default) and then eager: the trace is written and the TSV equals the
+    untraced pass's; prints the phase report, the device busy share (the
+    union of the trace's kernel and copy intervals over the pass's wall
+    time, under the profiler), the kernel time by name, the launches a
+    batch (port kernels, ``cudaLaunchKernel``, ``cudaGraphLaunch``), the
+    graphs captured and replayed, the peak reserved device memory, the
+    fetch against the dispatch and the
     host time in CUDA runtime calls; then where one ends and one
     whole-read batch (``batches``) make the host wait for the card."""
     from torch.profiler import ProfilerActivity, profile
@@ -1759,17 +1830,24 @@ def check_profile(fq_ends, fq_whole, d, wrappers, smi, batches) -> None:
     log(f"[profile] profiler warm-up {time.perf_counter() - t0:.1f}s")
     pipeline._TIMING = True
     try:
-        for name, fq, n_reads in (("kit", fq_ends, N_ENDS),
-                                  ("kit_extended", fq_ends, N_ENDS),
-                                  ("annotate", fq_whole, N_WHOLE)):
-            pdir = os.path.join(d, f"profile_{name}")
-            out = os.path.join(d, f"{name}_profiled")
+        for (name, fq, n_reads), mode in (
+                (p, m) for p in (("kit", fq_ends, N_ENDS),
+                                 ("kit_extended", fq_ends, N_ENDS),
+                                 ("annotate", fq_whole, N_WHOLE))
+                for m in ("graphs", "eager")):
+            tag = f"{name} ({mode})"
+            pdir = os.path.join(d, f"profile_{name}_{mode}")
+            out = os.path.join(d, f"{name}_profiled_{mode}")
             pipeline.TIMINGS.clear()
             for w in wrappers:
                 w.launches = 0
             os.environ["BARBELL_PROFILE_DIR"] = pdir
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
             try:
-                with _quiet(d, f"{name}_profiled"):
+                with _quiet(d, f"{name}_profiled_{mode}"), _graph_caches() as caches, \
+                        (_eager_engines() if mode == "eager" else contextlib.nullcontext()):
                     torch.cuda.synchronize()
                     t0 = time.perf_counter()
                     PATHS[name](fq, out, "torch")
@@ -1780,38 +1858,43 @@ def check_profile(fq_ends, fq_whole, d, wrappers, smi, batches) -> None:
             launches = {w.__name__: w.launches for w in wrappers}
             traces = sorted(Path(pdir).glob("*.trace.json"))
             if len(traces) != 1:
-                raise AssertionError(f"[profile] {name}: traces {traces}")
+                raise AssertionError(f"[profile] {tag}: traces {traces}")
             with open(os.path.join(out, "annotation.tsv"), "rb") as a, \
                     open(os.path.join(d, name, "annotation.tsv"), "rb") as b:
                 if a.read() != b.read():
-                    raise AssertionError(f"[profile] {name}: TSV differs from "
+                    raise AssertionError(f"[profile] {tag}: TSV differs from "
                                          f"the untraced pass's")
             busy_ms, kernels, copy_ms, runtime = _trace_device_time(traces[0])
             n_batches = -(-n_reads // BATCH)
             t = pipeline.TIMINGS
             disp, fetch = t["demux_call.dispatch"], t["demux_call.fetch"]
             top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:12]
-            log(f"[profile] {name}: {n_reads} reads, {n_batches} batches, wall "
+            log(f"[profile] {tag}: {n_reads} reads, {n_batches} batches, wall "
                 f"{wall_ms:.1f} ms under the profiler; trace "
                 f"{traces[0].name} ({traces[0].stat().st_size} bytes); TSV = "
                 f"untraced pass's; {smi}")
-            log(f"[profile] {name}: phases (seconds summed over "
+            log(f"[profile] {tag}: phases (seconds summed over "
                 f"{pipeline.DEFAULT_PIPELINE_DEPTH} worker threads):\n"
                 f"{pipeline.timing_report()}")
-            log(f"[profile] {name}: device busy {busy_ms:.2f} ms of {wall_ms:.1f} "
+            log(f"[profile] {tag}: device busy {busy_ms:.2f} ms of {wall_ms:.1f} "
                 f"= {100 * busy_ms / wall_ms:.2f}% (kernels "
                 f"{sum(ms for _n, ms in kernels.values()):.2f} ms in "
                 f"{sum(n for n, _ms in kernels.values())} launches, copies and "
                 f"sets {copy_ms:.2f} ms)")
-            log(f"[profile] {name}: kernel time by name (calls, ms): "
+            log(f"[profile] {tag}: kernel time by name (calls, ms): "
                 + "; ".join(f"{k} ({n}, {ms:.3f})" for k, (n, ms) in top))
-            log(f"[profile] {name}: port kernel launches a batch "
-                f"{ {k: round(v / n_batches, 2) for k, v in launches.items() if v} }")
-            log(f"[profile] {name}: demux_call.fetch {fetch[0] * 1000:.1f} ms "
+            log(f"[profile] {tag}: a batch: port kernel launches "
+                f"{ {k: round(v / n_batches, 2) for k, v in launches.items() if v} }, "
+                f"cudaLaunchKernel {_runtime_calls(runtime, 'cudaLaunchKernel') / n_batches:.2f}, "
+                f"cudaGraphLaunch {_runtime_calls(runtime, 'cudaGraphLaunch') / n_batches:.2f}; "
+                f"graphs captured {sum(c.captures for c in caches)}, replayed "
+                f"{sum(c.replays for c in caches)} in the pass; peak reserved memory "
+                f"{torch.cuda.max_memory_reserved() / 2**20:.0f} MiB")
+            log(f"[profile] {tag}: demux_call.fetch {fetch[0] * 1000:.1f} ms "
                 f"(n={fetch[1]}) against demux_call.dispatch {disp[0] * 1000:.1f} "
                 f"ms (n={disp[1]}): {fetch[0] / max(disp[0], 1e-9):.2f}x")
             top_rt = sorted(runtime.items(), key=lambda kv: -kv[1][1])[:6]
-            log(f"[profile] {name}: host time in CUDA runtime calls (calls, "
+            log(f"[profile] {tag}: host time in CUDA runtime calls (calls, "
                 f"ms, summed over threads): "
                 + "; ".join(f"{k} ({n}, {ms:.1f})" for k, (n, ms) in top_rt))
     finally:
@@ -1826,13 +1909,206 @@ def check_profile(fq_ends, fq_whole, d, wrappers, smi, batches) -> None:
             f"{_sync_points(eng, batch)} (file:line: times)")
 
 
+# ------------------------------------------------------------ graphs
+
+
+#: batches of each path the [graphs] phase runs
+N_GRAPH_BATCHES = 3
+
+
+def _tiers(eng):
+    """The engines a (two-tier) engine runs on."""
+    return [getattr(eng, t) for t in ("shallow", "deep") if hasattr(eng, t)] or [eng]
+
+
+def _recorded_pass(eng, batches, threads: bool = False):
+    """(fetched buffers by batch, tables) of one pass over ``batches``:
+    each of the engine's device calls' host copies, in call order within
+    the batch; on ``threads`` through ``engine_map_batches`` (the
+    pipeline's worker threads), else one batch after another."""
+    import threading
+
+    from barbell_tpu_torch.models.pipeline import engine_map_batches
+
+    local, bufs = threading.local(), {}
+    for t in _tiers(eng):
+        def fetch(launched, _orig=t._fetch):
+            out = _orig(launched)
+            bufs[local.batch].append(out.copy())
+            return out
+
+        t._fetch = fetch
+    run = eng.demux_batch_table
+
+    def batch_table(ids, seqs):
+        local.batch = ids[0]
+        bufs[ids[0]] = []
+        return run(ids, seqs)
+
+    try:
+        if threads:
+            tables = [tb for _i, _s, tb in engine_map_batches(
+                types.SimpleNamespace(demux_batch_table=batch_table), iter(batches))]
+        else:
+            tables = [batch_table(*b) for b in batches]
+        torch.cuda.synchronize()
+    finally:
+        for t in _tiers(eng):
+            del t._fetch  # the class's again, and no engine -> engine cycle
+    return [bufs[ids[0]] for ids, _s in batches], tables
+
+
+def _profiled_pass(eng, batches) -> dict:
+    """One pass over ``batches`` (one after another) under torch.profiler
+    and the phase timers: wall ms, the card's busy ms, kernels traced,
+    ``cudaLaunchKernel`` and ``cudaGraphLaunch`` calls, dispatch s, and
+    the device calls made (:class:`BatchRecorder`)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from barbell_tpu_torch.models import pipeline
+
+    pipeline.TIMINGS.clear()
+    pipeline._TIMING = True
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, \
+                BatchRecorder() as rec:
+            t0 = time.perf_counter()
+            for b in batches:
+                eng.demux_batch_table(*b)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1000
+        dispatch_s = pipeline.TIMINGS["demux_call.dispatch"][0]
+    finally:
+        pipeline._TIMING = False
+        pipeline.TIMINGS.clear()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        busy_ms, kernels, _copy_ms, runtime = _trace_device_time(path)
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "dispatch_s": dispatch_s,
+            "kernels": sum(n for n, _ms in kernels.values()),
+            "launch_kernel": _runtime_calls(runtime, "cudaLaunchKernel"),
+            "graph_launch": _runtime_calls(runtime, "cudaGraphLaunch"),
+            "calls": len(rec.batches), "caps": [b["H_cap"] for b in rec.batches]}
+
+
+def check_graphs(ends_reads, whole_reads, smi) -> None:
+    """CUDA graphs against the eager call on the first N_GRAPH_BATCHES
+    batches of the ends, extended and whole-read paths, and on the ends
+    path's first batch with its hit capacity forced to BATCH / 8 = 256
+    (the call overflows, and its retry runs at a capacity of its own, a
+    key of its own): every fetched device-call buffer byte-equal and every table
+    equal, on a first pass (which captures), a second (which captures
+    nothing and replays one graph a shard a device call,
+    ``cudaGraphLaunch`` counted in a profiler trace) and a third through
+    the pipeline's worker threads; the second pass's dispatch s, wall
+    ms, busy share and launch calls against an eager pass's, and the
+    reserved device memory with the cache full."""
+    import gc
+
+    from barbell_tpu_torch.models import pipeline
+
+    reads_of = {"ends": ends_reads, "extended": ends_reads, "whole-read": whole_reads}
+    cases = [(name, make, reads_of[name], N_GRAPH_BATCHES, False)
+             for name, make, _b in _first_batches(ends_reads, whole_reads)]
+    cases.append(("ends, forced retry", cases[0][1], ends_reads, 1, True))
+    for name, make, reads, n, force in cases:
+        batches = [([r for r, _s, _l in reads[i : i + BATCH]],
+                    [s for _r, s, _l in reads[i : i + BATCH]])
+                   for i in range(0, n * BATCH, BATCH)]
+
+        def build(graphs):
+            eng = make()
+            eng.cuda_graphs = graphs
+            if force:
+                eng_t = _tiers(eng)[0]
+                eng_t._h_cap = lambda B, plan, R: BATCH // 8
+            return eng
+
+        eager = build(False)
+        want, want_tables = _recorded_pass(eager, batches)
+        if force and not any(len(b) == 2 for b in want):
+            raise AssertionError(f"[graphs] {name}: no call overflowed the forced capacity")
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_reserved()
+        eng = build(True)
+        caches = [t._graphs for t in _tiers(eng)]
+        caps = lambda: sum(c.captures for c in caches)  # noqa: E731
+        c0 = caps()
+        passes = [_recorded_pass(eng, batches)]
+        c1 = caps()
+        # what stays reserved past the allocator's free cache: the graphs'
+        # pools and static inputs and outputs
+        torch.cuda.empty_cache()
+        one_mib = (torch.cuda.memory_reserved() - base) / 2**20
+        eager_stats = _profiled_pass(eager, batches)
+        graph_stats = _profiled_pass(eng, batches)
+        c2 = caps()
+        passes.append(_recorded_pass(eng, batches))
+        passes.append(_recorded_pass(eng, batches, threads=True))
+        c3 = caps()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        full_mib = (torch.cuda.memory_reserved() - base) / 2**20
+        for i, (got, tables) in enumerate(passes):
+            for b, (g, w) in enumerate(zip(got, want)):
+                if len(g) != len(w) or any(
+                        x.dtype != y.dtype or not np.array_equal(x, y) for x, y in zip(g, w)):
+                    raise AssertionError(f"[graphs] {name}: pass {i + 1}, batch {b}: "
+                                         f"fused outputs differ from the eager call's")
+            for b, (g, w) in enumerate(zip(tables, want_tables)):
+                _tables_equal(g, w, f"[graphs] {name}: pass {i + 1}, batch {b}")
+        if c1 - c0 <= 0 or c2 != c1:
+            raise AssertionError(f"[graphs] {name}: captures pass 1 {c1 - c0}, while "
+                                 f"profiled {c2 - c1}, want > 0 and 0")
+        if (graph_stats["graph_launch"], eager_stats["graph_launch"]) != (graph_stats["calls"], 0):
+            raise AssertionError(f"[graphs] {name}: cudaGraphLaunch {graph_stats['graph_launch']} "
+                                 f"for {graph_stats['calls']} device calls (eager "
+                                 f"{eager_stats['graph_launch']})")
+        instances = sum(c.instances(k) for c in caches for k in c.keys())
+        n_keys = sum(len(c.keys()) for c in caches)
+        del eng, caches, passes
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        freed_mib = (torch.cuda.memory_reserved() - base) / 2**20
+        n_bufs = sum(len(w) for w in want)
+        per = lambda st, k: st[k] / len(batches)  # noqa: E731
+        log(f"[graphs] {name}: {len(batches)} batch(es) of {BATCH} reads, "
+            f"{n_bufs} device-call buffers byte-equal to the eager call's on passes 1-3 "
+            f"(3: {pipeline.DEFAULT_PIPELINE_DEPTH} worker threads), tables equal; "
+            f"captures pass 1 "
+            f"{c1 - c0}, pass 2 {c2 - c1}, pass 3 {c3 - c2}; pass 2: "
+            f"cudaGraphLaunch {graph_stats['graph_launch']} for {graph_stats['calls']} "
+            f"device calls (one a shard a call), a batch cudaLaunchKernel graphs "
+            f"{per(graph_stats, 'launch_kernel'):.1f} / eager "
+            f"{per(eager_stats, 'launch_kernel'):.1f}, kernels traced graphs "
+            f"{graph_stats['kernels']} / eager {eager_stats['kernels']}; dispatch s "
+            f"graphs {graph_stats['dispatch_s']:.4f} / eager {eager_stats['dispatch_s']:.4f}; "
+            f"wall ms graphs {graph_stats['wall_ms']:.1f} / eager "
+            f"{eager_stats['wall_ms']:.1f}; busy graphs "
+            f"{100 * graph_stats['busy_ms'] / graph_stats['wall_ms']:.2f}% / eager "
+            f"{100 * eager_stats['busy_ms'] / eager_stats['wall_ms']:.2f}% (one thread, "
+            f"under the profiler); reserved memory +{one_mib:.0f} MiB after pass 1 "
+            f"(one instance a key), +{full_mib:.0f} MiB with the cache full after "
+            f"pass 3 ({instances} instance(s) of {n_keys} key(s)), +{freed_mib:.0f} MiB "
+            f"once the engine is dropped ({smi})")
+        if force:
+            log(f"[graphs] {name}: the device calls' hit capacities "
+                f"{graph_stats['caps']}: the forced {BATCH // 8}, then the retry's own")
+
+
 # ------------------------------------------- upload, row buckets, stages
 
 
 class KernelCalls:
     """Copies of the arguments of every kernel call the device calls
     make while installed, in order; the calls go on to the wrappers,
-    which count their launches."""
+    which count their launches.  Calls inside a CUDA-graph capture are
+    passed over, as :class:`MyersCapture` does."""
 
     def __init__(self):
         import threading
@@ -1847,6 +2123,8 @@ class KernelCalls:
     def __enter__(self):
         for name, fn in self.orig.items():
             def call(*args, _name=name, _fn=fn):
+                if torch.cuda.is_current_stream_capturing():
+                    return _fn(*args)
                 copy = tuple(a.clone() if isinstance(a, torch.Tensor) else a
                              for a in args)
                 with self.lock:
@@ -1948,9 +2226,10 @@ def _first_batches(ends_reads, whole_reads):
 
 
 def _h2d_issued_mode():
-    """A dispatch mode that counts the host-to-device copies torch issues:
-    each ``_to_copy`` / ``copy_`` that reads a host tensor and writes one
-    on the card."""
+    """A dispatch mode that counts the copies torch issues: each
+    ``_to_copy`` / ``copy_`` that reads a host tensor and writes one on
+    the card (``n``), and each ``copy_`` from the card to the card
+    (``d2d``: the copy of an upload into a CUDA graph's static input)."""
     from torch.utils._python_dispatch import TorchDispatchMode
     from torch.utils._pytree import tree_leaves
 
@@ -1960,6 +2239,7 @@ def _h2d_issued_mode():
         def __init__(self):
             super().__init__()
             self.n = 0
+            self.d2d = 0
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             out = func(*args, **(kwargs or {}))
@@ -1969,6 +2249,9 @@ def _h2d_issued_mode():
                 if (any(t.device.type == "cpu" for t in ins)
                         and any(t.device.type == "cuda" for t in outs)):
                     self.n += 1
+                elif (func == torch.ops.aten.copy_.default
+                      and all(t.device.type == "cuda" for t in ins)):
+                    self.d2d += 1
             return out
 
     return H2DIssued()
@@ -1977,10 +2260,13 @@ def _h2d_issued_mode():
 def _h2d_copies(fn, tries: int = 3) -> tuple:
     """Host-to-device copies during one ``fn()``, counted twice: the ones
     torch issued (:func:`_h2d_issued_mode`) and the ``HtoD`` copy events
-    the card ran (a torch.profiler trace).  A trace that holds no kernel
-    of the batch has lost its device records (CUPTI drops a session's
-    records now and then): the run is made again, up to ``tries`` runs,
-    and then the check fails.  Returns (issued, ran, kernels traced)."""
+    the card ran (a torch.profiler trace); and the device-to-device
+    copies torch issued with ``copy_`` and the ``DtoD`` events the card
+    ran (the latter include copies inside a replayed graph).  A trace
+    that holds no kernel and no device copy of the batch has lost its
+    device records (CUPTI drops a session's records now and then): the
+    run is made again, up to ``tries`` runs, and then the check fails.
+    Returns (issued, ran, kernels traced, DtoD issued, DtoD ran)."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(tries):
@@ -1995,11 +2281,12 @@ def _h2d_copies(fn, tries: int = 3) -> tuple:
             with open(path) as fh:
                 events = json.load(fh)["traceEvents"]
         kernels = sum(1 for e in events if e.get("cat") == "kernel")
-        if kernels:
-            ran = sum(1 for e in events
-                      if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", ""))
-            return issued.n, ran, kernels
-    raise AssertionError(f"the profiler kept no kernel of the batch in {tries} runs")
+        copies = [e.get("name", "") for e in events if e.get("cat") == "gpu_memcpy"]
+        d2d = sum("DtoD" in c for c in copies)
+        if kernels or d2d:
+            ran = sum("HtoD" in c for c in copies)
+            return issued.n, ran, kernels, issued.d2d, d2d
+    raise AssertionError(f"the profiler kept no kernel or copy of the batch in {tries} runs")
 
 
 def check_upload(ends_reads, whole_reads, wrappers, smi) -> dict:
@@ -2016,7 +2303,7 @@ def check_upload(ends_reads, whole_reads, wrappers, smi) -> dict:
         res = {}
         for mono in (True, False):
             eng = make(mono_upload=mono)
-            tiers = [getattr(eng, t) for t in ("shallow", "deep") if hasattr(eng, t)] or [eng]
+            tiers = _tiers(eng)
             before = {w.__name__: w.launches for w in wrappers}
             table = eng.demux_batch_table(*batch)
             torch.cuda.synchronize()
@@ -2039,9 +2326,18 @@ def check_upload(ends_reads, whole_reads, wrappers, smi) -> dict:
             raise AssertionError(f"[upload] {name}: host-to-device copies a batch on "
                                  f"the blob issued {c1[0]}, ran {c1[1]} ({c1[2]} kernels "
                                  f"traced), want 1 and 1")
+        # under CUDA graphs each device call copies its upload into its
+        # graph's static inputs: the blob once (one call of every
+        # group), or each array once a group's call
+        if (c1[3], c0[3]) != (1, c0[0] * groups):
+            raise AssertionError(f"[upload] {name}: copies into static inputs a batch "
+                                 f"blob {c1[3]}, separate {c0[3]}, want 1 and "
+                                 f"{c0[0] * groups}")
         log(f"[upload] {name}: {len(batch[0])} reads, tables equal ({res[True][0].n_rows} "
             f"rows); dispatch blob {d1}, separate {d0}; host-to-device copies a batch "
-            f"(issued, ran on the card) blob {c1[:2]}, separate {c0[:2]}; kernels traced "
+            f"(issued, ran on the card) blob {c1[:2]}, separate {c0[:2]}; device-to-device "
+            f"copies into the graphs' static inputs (issued; DtoD ran, graph copies "
+            f"included) blob {c1[3]} ({c1[4]}), separate {c0[3]} ({c0[4]}); kernels traced "
             f"blob {c1[2]}, separate {c0[2]}; the host waits for the card at blob "
             f"{sum(w1.values())} {w1}, separate {sum(w0.values())} {w0}; wall ms a batch "
             f"blob {ms1:.1f}, separate {ms0:.1f} (smoke figure; {smi})")
@@ -2373,6 +2669,8 @@ def main() -> int:
             check_profile(fq_ends, fq_whole, d, wrappers, smi, [
                 ([r for r, _s, _l in reads[:BATCH]], [s for _r, s, _l in reads[:BATCH]])
                 for reads in (ends_reads, whole_reads)])
+        with timed("graphs"):
+            check_graphs(ends_reads, whole_reads, smi)
         with timed("upload"):
             by_path["upload"] = check_upload(ends_reads, whole_reads, wrappers, smi)
             _require(by_path["upload"], on_path, "[upload]")

@@ -249,3 +249,31 @@ def test_compare_engine_matches_jax(tmp_path, capsys, monkeypatch):
     assert got == capsys.readouterr().out.splitlines()
     assert report.group == "GroupV"
     assert (report.total_reads, report.assigned, report.correct) == (8, 8, 0)
+
+
+@pytest.mark.parametrize("pattern", [
+    "Ftag[fw, *, @left(0..250), >>]",
+    "Ftag[fw, ?1, @left(0..250)]__Ftag[fw, ?1, @prev_left(0..250), >>]",
+    "Ftag[<<, rc, *, @right(0..250)]",
+    "Ftag[fw, *]",
+    "Ftag[fw, *, @prev_left(0..250)]",
+])
+def test_ends_window_for_patterns_matches_jax(pattern):
+    """The one-window ends plan of a pattern (``tests/test_ends.py``'s
+    cases on SQK-RBK114-96: 512, 896, 512, and None for an unbounded
+    element or a bare ``@prev_left``) equals the JAX package's."""
+    from barbell_tpu.stages.kit import ends_window_for_patterns as jax_window
+    from barbell_tpu.stages.pattern import pattern_from_str as jax_pattern
+    from barbell_tpu.models.barcodes import BarcodeGroup
+    from barbell_tpu.ops.edit_model import get_edit_cut_off
+    from barbell_tpu_torch.stages.kit import ends_window_for_patterns, kit_groups
+    from barbell_tpu_torch.stages.pattern import pattern_from_str
+
+    groups = BarcodeGroup.from_kit("SQK-RBK114-96", False)
+    for g in groups:
+        g.set_flank_threshold(get_edit_cut_off(g.get_effective_len()))
+    want = jax_window([jax_pattern(pattern)], groups)
+    got = ends_window_for_patterns([pattern_from_str(pattern)],
+                                   kit_groups("SQK-RBK114-96"))
+    assert got == want
+    assert want in (512, 896, None)
