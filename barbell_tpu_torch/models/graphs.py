@@ -41,17 +41,28 @@ call.  Launch counts stay counts of kernels that ran: the eager first
 use counts as it runs, a capture notes its launches
 (:func:`~barbell_tpu_torch._build.recording_launches`) and each replay
 counts them.
+
+:func:`compiled` is the counterpart of ``functools.partial(jax.jit,
+static_argnames=...)`` for the port's other device functions (the
+staged composites, the stage functions of
+:mod:`~barbell_tpu_torch.ops.device`, the mesh's flank step): on CUDA
+tensors each call is a replay of one graph a key, taken from one
+module-level :class:`GraphCache`.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import gc
+import inspect
 import itertools
+import numbers
 import threading
 from collections import OrderedDict
-from typing import Callable, Dict, Hashable, List, Optional, Tuple
+from typing import Any, Callable, Dict, Hashable, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .. import _build
@@ -77,7 +88,8 @@ class _Entry:
 
 class Instance:
     """One captured call: its static ``inputs`` (the tensors the graph
-    reads), its static ``output`` (the tensor each replay writes), the
+    reads), its static ``output`` (what each replay writes: a tensor, or
+    a tuple holding tensors), the
     ``graph`` (anything with ``replay()``), the kernel wrappers its
     capture launched (counted again at each replay) and the key and
     serial of the pool it belongs to.  It holds no reference to the
@@ -256,3 +268,159 @@ class GraphCache:
         """The cached keys, least recently used first."""
         with self._cond:
             return list(self._entries)
+
+    def clear(self) -> None:
+        """Drop every key (an instance checked out now is dropped when
+        handed back), and with the last references their graphs and
+        memory pools."""
+        with self._cond:
+            self._entries.clear()
+            self._cond.notify_all()
+
+
+# ---------------------------------------------------------------------------
+# compiled: jax.jit for the port's device functions
+# ---------------------------------------------------------------------------
+
+#: the cache of every :func:`compiled` function: one graph a key (calls
+#: of one key take turns), the least recently used of MAX_KEYS keys
+#: dropped
+COMPILED = GraphCache(per_key=1)
+
+_inline = threading.local()  # depth of compiled bodies running on this thread
+
+
+def _scalar_dtype(x) -> Optional[torch.dtype]:
+    """The dtype JAX traces a Python or numpy scalar as (32-bit), or
+    None for anything else."""
+    if isinstance(x, (bool, np.bool_)):
+        return torch.bool
+    if isinstance(x, numbers.Integral):
+        return torch.int32
+    if isinstance(x, numbers.Real):
+        return torch.float32
+    return None
+
+
+def _graph_device(tensors) -> Optional[torch.device]:
+    """The CUDA device of the first tensor on one, else None (the call
+    runs eagerly, as on the CPU)."""
+    for t in tensors:
+        if t.device.type == "cuda":
+            return t.device
+    return None
+
+
+def _flatten(out, leaves: list):
+    """The structure of ``out`` (a tensor, None, or a tuple or NamedTuple
+    of those) with its tensors appended to ``leaves``, made contiguous
+    inside the call (so that a replay's copies of them are memcpys, not
+    kernels)."""
+    if isinstance(out, torch.Tensor):
+        leaves.append(out.contiguous())
+        return len(leaves) - 1
+    if out is None:
+        return None
+    if isinstance(out, tuple):
+        return (type(out), tuple(_flatten(o, leaves) for o in out))
+    raise TypeError(f"compiled: cannot return {type(out).__name__}")
+
+
+def _unflatten(spec, leaves):
+    """:func:`_flatten`'s ``out`` again, with ``leaves`` for its tensors."""
+    if spec is None:
+        return None
+    if isinstance(spec, int):
+        return leaves[spec]
+    cls, parts = spec
+    items = [_unflatten(p, leaves) for p in parts]
+    return cls(*items) if hasattr(cls, "_fields") else cls(items)
+
+
+def compiled(static_argnames=(), by_value=()):
+    """Decorator: the port's ``functools.partial(jax.jit,
+    static_argnames=static_argnames)``.
+
+    On CPU tensors, inside another compiled call (JAX inlines a nested
+    jit) and inside a stream capture the function runs as written.
+    Otherwise the call's key is the function, the values of ``static_argnames``, the values of the
+    ``by_value`` scalars (those a kernel takes as a launch argument,
+    which a graph bakes in; JAX traces them) and each tensor argument's
+    shape, dtype and device; every other Python or numpy scalar becomes
+    a 0-d tensor on the device (int32, float32 or bool, as JAX traces
+    it), so one graph serves every value.  A key's first call runs the
+    function eagerly and captures it (:meth:`GraphCache.run`); later
+    calls copy their tensors into the graph's static inputs and replay
+    it on the current stream.  The result is a tensor, or a tuple or
+    NamedTuple of tensors and None, that the call owns: a
+    device-to-device copy of the graph's outputs, as a jitted call
+    returns new arrays.  Calls of one key are ordered on one stream of
+    the device.  A failed capture or replay raises.  ``fn.__wrapped__``
+    is the function as written."""
+    static_argnames, by_value = tuple(static_argnames), tuple(by_value)
+
+    def wrap(fn):
+        sig = inspect.signature(fn)
+
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            bound = sig.bind(*args, **kwargs)
+            bound.apply_defaults()
+            arguments = bound.arguments
+            device = _graph_device(a for a in arguments.values()
+                                   if isinstance(a, torch.Tensor))
+            if (device is None or getattr(_inline, "depth", 0)
+                    or (device.type == "cuda" and torch.cuda.is_current_stream_capturing())):
+                return fn(*args, **kwargs)
+            fixed: Dict[str, Any] = {}
+            inputs: Dict[str, torch.Tensor] = {}
+            key: List[Hashable] = [fn]
+            for name, value in arguments.items():
+                if name in static_argnames:
+                    fixed[name] = value
+                    key.append((name, value))
+                elif name in by_value:
+                    if isinstance(value, (torch.Tensor, np.generic)):
+                        value = value.item()  # a launch argument: read on the host
+                    fixed[name] = value
+                    key.append((name, value))
+                elif isinstance(value, torch.Tensor):
+                    inputs[name] = value.to(device)
+                    key.append((name, tuple(value.shape), value.dtype, device))
+                elif _scalar_dtype(value) is not None:
+                    dtype = _scalar_dtype(value)
+                    staged = torch.tensor(value, dtype=dtype)
+                    if device.type == "cuda":  # an asynchronous copy, no wait
+                        staged = staged.pin_memory()
+                    inputs[name] = staged.to(device, non_blocking=True)
+                    key.append((name, (), dtype, device))
+                elif value is None:
+                    fixed[name] = None
+                    key.append((name, None))
+                else:
+                    raise TypeError(f"{fn.__name__}: argument {name} of type "
+                                    f"{type(value).__name__} is neither a tensor "
+                                    f"nor a scalar; name it static")
+
+            def body(inp):
+                _inline.depth = getattr(_inline, "depth", 0) + 1
+                try:
+                    out = fn(**fixed, **inp)
+                finally:
+                    _inline.depth -= 1
+                leaves: list = []
+                return (_flatten(out, leaves), *leaves)
+
+            ctx = torch.cuda.device(device) if device.type == "cuda" \
+                else contextlib.nullcontext()
+            with ctx:
+                out, inst = COMPILED.run(tuple(key), body, inputs)
+                try:
+                    leaves = [t.clone() for t in out[1:]]
+                finally:
+                    COMPILED.release(inst)
+            return _unflatten(out[0], leaves)
+
+        return call
+
+    return wrap

@@ -23,7 +23,10 @@ The staged composites :func:`flank_scan`, :func:`flank_trace` and
 :func:`barcode_rank` are the call's stages as separately testable
 pieces on the same kernels (their plain versions on CPU tensors); their
 ``*_reference`` variants run :mod:`barbell_tpu_torch.ops.device`'s move
-table and traceback on any device, the conformance anchors.
+table and traceback on any device, the conformance anchors.  The five
+are :func:`~barbell_tpu_torch.models.graphs.compiled` with the
+reference's static arguments (plus the scalars a kernel takes by
+value): on the card each call replays one CUDA graph per key.
 
 Row coordinate model: every row holds its text in columns
 ``[tsc, tec]`` (forward rows left-aligned at 0; on-device rc twins
@@ -38,6 +41,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..models.graphs import compiled
 from . import device as dev_ops
 from .myers import TOPK as MYERS_TOPK
 from .myers import myers_topk
@@ -421,7 +425,7 @@ def batch_rows(parts, *, pack_mode: int, L_rows: int, S_pad: int,
 
 
 def _scan_keys(flank, patw, rows, start_col, end_col, lo, hi, emit_lo,
-               emit_hi, alpha_scaled: int, K: int, m: int, k_units: int):
+               emit_hi, alpha_scaled, K: int, m: int, k_units: int):
     """Top-K flank valley keys (cost*L_key + col) + total count per row:
     the Myers interior, the two alpha boundary windows, and their merge."""
     R, L = rows.shape
@@ -850,6 +854,7 @@ class FlankScanOut(NamedTuple):
     packed: torch.Tensor  # [R_total, 2K+1] int32: K col | K cost | count
 
 
+@compiled(static_argnames=("K", "m", "k_units"), by_value=("alpha_scaled",))
 def flank_scan(pattern, patw, host_packed, simple_idx, start_col, end_col, lo,
                hi, emit_lo, emit_hi, alpha_scaled, *, K: int, m: int,
                k_units: int) -> FlankScanOut:
@@ -867,7 +872,7 @@ def flank_scan(pattern, patw, host_packed, simple_idx, start_col, end_col, lo,
     rows = torch.cat([host_rows, twins], dim=0)
     key_top, count = _scan_keys(
         pattern, patw, rows, start_col, end_col, lo, hi, emit_lo, emit_hi,
-        int(alpha_scaled), K, m, k_units,
+        alpha_scaled, K, m, k_units,
     )
     L_key = rows.shape[1] + 2
     found = key_top < BIG
@@ -892,6 +897,7 @@ def _masked_windows(rows, row_idx, win_start, w_len, W: int):
     return torch.where(jpos[None, :] < w_len[:, None], windows, 0).to(torch.uint8)
 
 
+@compiled(static_argnames=("m", "W"), by_value=("alpha_scaled", "region_a", "region_b"))
 def flank_trace(pattern, rows, row_idx, win_start, left_edge, right_pos, end_j,
                 valid, region_a, region_b, alpha_scaled, *, m: int, W: int):
     """[H, 4] int32: text start, region lo, region hi, has region (all
@@ -901,10 +907,11 @@ def flank_trace(pattern, rows, row_idx, win_start, left_edge, right_pos, end_j,
     ``valid`` is unused here, as in the reference's fused form."""
     windows = _masked_windows(rows, row_idx, win_start, end_j, W)
     ts, rlo, rhi = window_trace(pattern, windows, end_j, left_edge, right_pos,
-                                int(alpha_scaled), int(region_a), int(region_b))
+                                alpha_scaled, region_a, region_b)
     return torch.stack([ts, rlo, rhi, (rhi >= 0).to(torch.int32)], dim=1).to(torch.int32)
 
 
+@compiled(static_argnames=("m", "W"))
 def flank_trace_reference(pattern, rows, row_idx, win_start, left_edge,
                           right_pos, end_j, valid, region_a, region_b,
                           alpha_scaled, *, m: int, W: int):
@@ -929,9 +936,10 @@ def _select(best_cost, lodhi, hvalid, k1_scaled, perfect, min_score,
     ``allowed`` patterns (default all): candidates within k1 (every
     allowed pattern when at most one is), the best normalized Lodhi
     score, accepted above ``min_score`` and ``min_score_diff`` ahead of
-    the second; ties to the first pattern.  Comparisons run in f32."""
+    the second; ties to the first pattern.  Comparisons run in f32; the
+    scalars may be numbers or 0-d device tensors."""
     P = best_cost.shape[1]
-    in_k1 = best_cost <= int(k1_scaled)
+    in_k1 = best_cost <= k1_scaled
     if allowed is not None:
         in_k1 = in_k1 & allowed
     use_all = in_k1.sum(dim=1) <= 1
@@ -940,9 +948,11 @@ def _select(best_cost, lodhi, hvalid, k1_scaled, perfect, min_score,
         cand = cand & allowed
     # divide by a device tensor: a CPU-scalar divisor may become a
     # reciprocal multiply on CUDA, which rounds differently
-    scores = torch.where(
-        cand, lodhi / torch.full_like(lodhi, float(perfect)), -torch.inf
-    )
+    if isinstance(perfect, torch.Tensor):
+        den = perfect.to(device=lodhi.device, dtype=lodhi.dtype).expand_as(lodhi)
+    else:
+        den = torch.full_like(lodhi, float(perfect))
+    scores = torch.where(cand, lodhi / den, -torch.inf)
     top = torch.argmax(scores, dim=1)
     top_norm = torch.gather(scores, 1, top[:, None])[:, 0]
     rest = torch.where(
@@ -951,12 +961,13 @@ def _select(best_cost, lodhi, hvalid, k1_scaled, perfect, min_score,
     )
     second_norm = rest.max(dim=1).values
     n_cand = cand.sum(dim=1)
-    accepted = (top_norm >= float(min_score)) & (
-        (n_cand <= 1) | ((top_norm - second_norm) >= float(min_score_diff))
+    accepted = (top_norm >= min_score) & (
+        (n_cand <= 1) | ((top_norm - second_norm) >= min_score_diff)
     )
     return top, accepted & hvalid & (n_cand > 0)
 
 
+@compiled(static_argnames=("m", "W"), by_value=("iv_a", "iv_b"))
 def barcode_rank(patterns, rows, row_idx, win_start, w_len, hvalid, k1_scaled,
                  iv_a, iv_b, perfect, min_score, min_score_diff, *, m: int,
                  W: int):
@@ -985,7 +996,7 @@ def barcode_rank(patterns, rows, row_idx, win_start, w_len, hvalid, k1_scaled,
     top, accepted = _select(best_cost, lodhi_best, hvalid.to(torch.bool),
                             k1_scaled, perfect, min_score, min_score_diff)
     end_top = torch.gather(best_pos, 1, top[:, None])[:, 0]
-    iv = window_interval(patterns[top], windows, end_top, int(iv_a), int(iv_b))
+    iv = window_interval(patterns[top], windows, end_top, iv_a, iv_b)
     return torch.stack(
         [top.to(torch.int32), accepted.to(torch.int32), iv[:, 0], iv[:, 1] + 1,
          iv[:, 2], iv[:, 3] + 1, iv[:, 4], iv[:, 5]],
@@ -993,6 +1004,7 @@ def barcode_rank(patterns, rows, row_idx, win_start, w_len, hvalid, k1_scaled,
     ).to(torch.int32)
 
 
+@compiled(static_argnames=("m", "W"))
 def barcode_rank_reference(patterns, rows, row_idx, win_start, w_len, hvalid,
                            k1_scaled, iv_a, iv_b, perfect, min_score,
                            min_score_diff, *, m: int, W: int):
@@ -1011,7 +1023,7 @@ def barcode_rank_reference(patterns, rows, row_idx, win_start, w_len, hvalid,
     )
     best = dev_ops.best_valley_per_pattern(bdp.ends, w_len)
     hv = hvalid.to(torch.bool)
-    in_k1 = best.cost <= int(k1_scaled)
+    in_k1 = best.cost <= k1_scaled
     cand = ((in_k1.sum(dim=1) <= 1)[:, None] | in_k1) & hv[:, None]
     tr = dev_ops.traceback_reduce(bdp.moves, best.pos, cand, 0, -1, iv_a, iv_b,
                                   m=m, W=W)

@@ -22,7 +22,10 @@ There is no kernel here: these are an independent formulation (a move
 table and its traceback, or a forward summary DP), the port's own
 conformance anchors, run on any device.  Every ordering is a composite
 key (cost, then column), so ties go to the smallest column whatever the
-sort's own tie order.
+sort's own tie order.  Each is :func:`~barbell_tpu_torch.models.graphs.compiled`
+with the reference's static arguments: on the card a call replays one
+CUDA graph per key, so no function reads a device value on the host
+(scalar arguments may be 0-d tensors).
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..models.graphs import compiled
 from .oracle import COST_SCALE
 
 UNIT = COST_SCALE
@@ -60,6 +64,7 @@ def _shift_left(a, fill):
 # ---------------------------------------------------------------------------
 
 
+@compiled()
 def flank_ends(pattern, text, start_col, end_col, alpha_scaled):
     """End-cost curve of ``pattern`` over each text row.
 
@@ -70,17 +75,16 @@ def flank_ends(pattern, text, start_col, end_col, alpha_scaled):
     garbage outside each row's valid end range (masked downstream)."""
     B, L = text.shape
     dev = text.device
-    alpha = int(alpha_scaled)
     jpos = torch.arange(L + 1, dtype=_I32, device=dev)
     boundary_col = (jpos[None, :] == start_col[:, None]) | (
         jpos[None, :] == end_col[:, None]
     )
-    vert = torch.where(boundary_col, alpha, UNIT).to(_I32)  # [B, L+1]
+    vert = torch.where(boundary_col, alpha_scaled, UNIT).to(_I32)  # [B, L+1]
     unit_j = UNIT * jpos
-    boundary_step = torch.where(start_col == 0, alpha, UNIT).to(_I32)  # [B]
+    boundary_step = torch.where(start_col == 0, alpha_scaled, UNIT).to(_I32)  # [B]
     txt = text.to(_I32)
     C = torch.zeros((B, L + 1), dtype=_I32, device=dev)
-    for i, pat_i in enumerate(pattern.tolist(), start=1):
+    for i, pat_i in enumerate(pattern.to(_I32), start=1):  # m from the shape
         sub = torch.where((txt & pat_i) != 0, 0, UNIT).to(_I32)
         v = torch.minimum(C[:, :-1] + sub, C[:, 1:] + vert[:, 1:])
         w = torch.cat([(boundary_step * i)[:, None], v], dim=1)
@@ -100,6 +104,7 @@ class Hits(NamedTuple):
     count: torch.Tensor  # [B] int32 total valleys (for overflow detection)
 
 
+@compiled(static_argnames=("K",))
 def find_hits(ends, lo, hi, k_scaled, K: int) -> Hits:
     """Plateau-valley minima with cost <= k, compacted to K per row.
 
@@ -114,7 +119,7 @@ def find_hits(ends, lo, hi, k_scaled, K: int) -> Hits:
     e = torch.where(valid, ends, BIG)
     prv = _shift_right(e, BIG)
     nxt = _shift_left(e, BIG)
-    isv = (e <= int(k_scaled)) & (e < nxt) & (e <= prv)
+    isv = (e <= k_scaled) & (e < nxt) & (e <= prv)
     count = isv.sum(dim=1, dtype=_I32)
     key = torch.where(isv, e, BIG).to(torch.int64) * N + jpos  # unique per row
     top = key.sort(dim=1).values[:, :K]
@@ -132,6 +137,7 @@ class WindowDP(NamedTuple):
     moves: torch.Tensor  # [m, H, P, W+1] uint8 (bits 0-1 move, bit 2 match)
 
 
+@compiled()
 def window_dp(patterns, windows, left_edge, right_pos, alpha_scaled) -> WindowDP:
     """Semiglobal DP of every pattern [P, m] against every window [H, W]
     (content left-aligned, zero tail).  ``left_edge`` [H]: column 0 is
@@ -142,10 +148,9 @@ def window_dp(patterns, windows, left_edge, right_pos, alpha_scaled) -> WindowDP
     P, m = patterns.shape
     H, W = windows.shape
     dev = windows.device
-    alpha = int(alpha_scaled)
     jpos = torch.arange(W + 1, dtype=_I32, device=dev)
     unit_j = UNIT * jpos
-    vert = torch.where(jpos[None, :] == right_pos[:, None], alpha, UNIT).to(_I32)
+    vert = torch.where(jpos[None, :] == right_pos[:, None], alpha_scaled, UNIT).to(_I32)
     vert3 = vert[:, None, :]
     win = windows.to(_I32)[:, None, :]
     edge = left_edge.to(torch.bool)
@@ -158,7 +163,7 @@ def window_dp(patterns, windows, left_edge, right_pos, alpha_scaled) -> WindowDP
         sub = torch.where(eq, 0, UNIT).to(_I32)
         diag_val = C[:, :, :-1] + sub
         v = torch.minimum(diag_val, C[:, :, 1:] + vert3[:, :, 1:])
-        boundary = torch.where(edge, alpha * i, UNIT * i).to(_I32)
+        boundary = torch.where(edge, alpha_scaled * i, UNIT * i).to(_I32)
         w = torch.cat([boundary[:, None, None].expand(H, P, 1), v], dim=2)
         Cn = torch.cummin(w - unit_j, dim=2).values + unit_j
         diag_ok = Cn[:, :, 1:] == diag_val
@@ -192,6 +197,7 @@ class TraceResult(NamedTuple):
     lodhi: torch.Tensor  # [H, P] float32 gap-weighted score
 
 
+@compiled(static_argnames=("m", "W"))
 def traceback_reduce(moves, end_j, valid, region_a, region_b, iv_a, iv_b,
                      m: int, W: int) -> TraceResult:
     """Backward walk over the move tables ([m, H, P, W + 1]) from
@@ -201,7 +207,6 @@ def traceback_reduce(moves, end_j, valid, region_a, region_b, iv_a, iv_b,
     interval's start is overwritten on every step, its end set once)."""
     H, P = end_j.shape
     dev = end_j.device
-    ra, rb, ia, ib = int(region_a), int(region_b), int(iv_a), int(iv_b)
     hh = torch.arange(H, device=dev)[:, None].expand(H, P)
     pp = torch.arange(P, device=dev)[None, :].expand(H, P)
 
@@ -234,10 +239,10 @@ def traceback_reduce(moves, end_j, valid, region_a, region_b, iv_a, iv_b,
         T1 = torch.where(active, a_c * (T1 + mf), T1)
 
         # column coordinates: the state after the step
-        in_region = active & (ni >= ra) & (ni <= rb)
+        in_region = active & (ni >= region_a) & (ni <= region_b)
         region_lo = torch.where(in_region, torch.minimum(region_lo, nj), region_lo)
         region_hi = torch.where(in_region, torch.maximum(region_hi, nj), region_hi)
-        in_iv = active & (ni >= ia) & (ni < ib)
+        in_iv = active & (ni >= iv_a) & (ni < iv_b)
         iv_pi = torch.where(in_iv, ni, iv_pi)
         iv_pj = torch.where(in_iv, nj, iv_pj)
         first_iv = in_iv & ~has_interval
@@ -282,6 +287,7 @@ class SummaryDP(NamedTuple):
     has_interval: torch.Tensor  # bool
 
 
+@compiled(static_argnames=("with_lodhi", "with_region", "with_interval", "with_start"))
 def window_dp_summary(patterns_hp, windows, left_edge, right_pos, alpha_scaled,
                       region_a, region_b, iv_a, iv_b, with_lodhi: bool = False,
                       with_region: bool = False, with_interval: bool = False,
@@ -296,18 +302,18 @@ def window_dp_summary(patterns_hp, windows, left_edge, right_pos, alpha_scaled,
     Hp, P, m = patterns_hp.shape
     H, W = windows.shape
     dev = windows.device
-    alpha = int(alpha_scaled)
-    ra, rb, ia, ib = int(region_a), int(region_b), int(iv_a), int(iv_b)
+    ra, rb, ia, ib = region_a, region_b, iv_a, iv_b
     jpos = torch.arange(W + 1, dtype=_I32, device=dev)
     jpos3 = jpos[None, None, :]
     unit_j = UNIT * jpos
-    vert = torch.where(jpos[None, :] == right_pos[:, None], alpha, UNIT).to(_I32)
+    vert = torch.where(jpos[None, :] == right_pos[:, None], alpha_scaled, UNIT).to(_I32)
     vert3 = vert[:, None, :]
     win = windows.to(_I32)[:, None, :]
     edge = left_edge.to(torch.bool)
-    # lambda**d for a run of d left moves, exact powers of two
-    pow2 = torch.tensor([2.0 ** -d for d in range(W + 1)], dtype=torch.float64,
-                        device=dev).to(_F32)
+    # lambda**d for a run of d left moves, exact powers of two (products
+    # of halves are exact in f64), made on the device
+    halves = torch.full((W,), 0.5, dtype=torch.float64, device=dev).cumprod(0)
+    pow2 = torch.cat([torch.ones(1, dtype=torch.float64, device=dev), halves]).to(_F32)
 
     def zi(fill):
         return torch.full((H, P, W + 1), fill, dtype=_I32, device=dev)
@@ -337,7 +343,7 @@ def window_dp_summary(patterns_hp, windows, left_edge, right_pos, alpha_scaled,
         sub = torch.where(eq, 0, UNIT).to(_I32)
         diag_val = C_prev[:, :, :-1] + sub
         v = torch.minimum(diag_val, C_prev[:, :, 1:] + vert3[:, :, 1:])
-        boundary = torch.where(edge, alpha * i, UNIT * i).to(_I32)
+        boundary = torch.where(edge, alpha_scaled * i, UNIT * i).to(_I32)
         w = torch.cat([boundary[:, None, None].expand(H, P, 1), v], dim=2)
         C = torch.cummin(w - unit_j, dim=2).values + unit_j
 
@@ -391,19 +397,23 @@ def window_dp_summary(patterns_hp, windows, left_edge, right_pos, alpha_scaled,
             factor = pow2[d.long()]
             new["T1"] = new["T1"] * factor
             new["T2"] = new["T2"] * factor
-        if with_region and ra <= i <= rb:
-            new["region_lo"] = torch.where(chain, torch.minimum(new["region_lo"], g),
+        # the row tests below are masks, not branches: region and
+        # interval bounds may be device values
+        if with_region:
+            chain_r = chain & ((ra <= i) & (i <= rb))
+            new["region_lo"] = torch.where(chain_r, torch.minimum(new["region_lo"], g),
                                            new["region_lo"])
-            new["region_hi"] = torch.where(chain, torch.maximum(new["region_hi"], jpos3 - 1),
+            new["region_hi"] = torch.where(chain_r, torch.maximum(new["region_hi"], jpos3 - 1),
                                            new["region_hi"])
-        if with_interval and ia <= i < ib:
-            first_iv = chain & ~new["has_iv"]
+        if with_interval:
+            chain_iv = chain & ((ia <= i) & (i < ib))
+            first_iv = chain_iv & ~new["has_iv"]
             new["iv_pi"] = torch.where(first_iv, i, new["iv_pi"]).to(_I32)
             new["iv_pj"] = torch.where(first_iv, g, new["iv_pj"])
-            new["iv_ei"] = torch.where(chain, i, new["iv_ei"]).to(_I32)
-            new["iv_ej"] = torch.where(chain, jpos3 - 1, new["iv_ej"]).to(_I32)
-            new["iv_cost"] = new["iv_cost"] + torch.where(chain, d, 0).to(_I32)
-            new["has_iv"] = new["has_iv"] | chain
+            new["iv_ei"] = torch.where(chain_iv, i, new["iv_ei"]).to(_I32)
+            new["iv_ej"] = torch.where(chain_iv, jpos3 - 1, new["iv_ej"]).to(_I32)
+            new["iv_cost"] = new["iv_cost"] + torch.where(chain_iv, d, 0).to(_I32)
+            new["has_iv"] = new["has_iv"] | chain_iv
         new["C"] = C
         st = new
     return SummaryDP(
@@ -426,6 +436,7 @@ class BestPerPattern(NamedTuple):
     has: torch.Tensor  # [H, P] bool
 
 
+@compiled()
 def best_valley_per_pattern(ends, w_len) -> BestPerPattern:
     """Lowest-cost valley per (window, pattern), ties to the smallest j;
     without a valley, column 0 (cost BIG).  ends [H, P, W + 1]; w_len

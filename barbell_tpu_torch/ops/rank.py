@@ -58,9 +58,11 @@ def _prepare(patterns, windows, split):
 
 
 def rank_pass1_plain(patterns, windows, w_len, split: int = 0):
-    """Plain PyTorch version, vectorized over (lane, pattern) pairs; the
-    f32 Lodhi update runs as separate elementwise ops (each rounded), in
-    the reference's order."""
+    """Plain PyTorch version, vectorized over (lane, pattern) pairs and
+    over each anti-diagonal of the DP (cell (i, j) needs (i-1, j-1),
+    (i, j-1) and (i-1, j), all on the two diagonals before it); the f32
+    Lodhi update runs as separate elementwise ops (each rounded), in the
+    reference's order.  The valley scan then runs over the last row."""
     windows, P = _prepare(patterns, windows, split)
     dev = windows.device
     H, W = windows.shape
@@ -71,59 +73,63 @@ def rank_pass1_plain(patterns, windows, w_len, split: int = 0):
         pidx = pidx + torch.where(torch.arange(H, device=dev) >= split, P, 0)[:, None]
     pats = patterns.to(i32)[pidx]  # [H, P, m]
     win = windows.to(i32)
-    wl = w_len.to(i32)[:, None]
-    C = [torch.full((H, P), i * UNIT, dtype=i32, device=dev) for i in range(m + 1)]
-    zf = torch.zeros((H, P), dtype=f32, device=dev)
-    T1 = [zf] * (m + 1)
-    T2 = [zf] * (m + 1)
-    S = [zf] * (m + 1)
-    zi = torch.zeros((H, P), dtype=i32, device=dev)
-    prv = torch.full((H, P), BIGK, dtype=i32, device=dev)
-    e_c = torch.full((H, P), m * UNIT, dtype=i32, device=dev)
-    s_c = zf
-    best_key = torch.full((H, P), BIGK, dtype=i32, device=dev)
-    best_s = zf
-    for j in range(1, W + 1):
-        tch = win[:, j - 1][:, None]
-        dc, dt1, dt2, ds = zi, zf, zf, zf  # row i-1 @ col j-1
-        uc, ut1, ut2, us = zi, zf, zf, zf  # row i-1 @ col j
-        for i in range(1, m + 1):
-            lc, lt1, lt2, ls = C[i], T1[i], T2[i], S[i]  # row i @ col j-1
-            eq = (pats[:, :, i - 1] & tch) != 0
-            diag = dc + torch.where(eq, 0, UNIT).to(i32)
-            lft = lc + UNIT
-            upc = uc + UNIT
-            c = torch.minimum(torch.minimum(diag, lft), upc)
-            dok = c == diag
-            uok = c == upc
-            mf = (dok & eq).to(f32)
-            a = torch.where(dok, A_DIAG, A_GAP).to(f32)
-            st1 = torch.where(dok, dt1, torch.where(uok, ut1, lt1))
-            st2 = torch.where(dok, dt2, torch.where(uok, ut2, lt2))
-            ss = torch.where(dok, ds, torch.where(uok, us, ls))
-            t1 = a * (st1 + mf)
-            t2 = a * (st2 + mf * st1)
-            s = ss + (mf * a) * st2
-            C[i], T1[i], T2[i], S[i] = c, t1, t2, s
-            dc, dt1, dt2, ds = lc, lt1, lt2, ls
-            uc, ut1, ut2, us = c, t1, t2, s
-        e = torch.where(wl >= j, uc, BIGK)
-        # valley at position j - 1 (its right neighbour is e)
-        isv = (e_c <= prv) & (e_c < e)
-        key = torch.where(isv, e_c * 256 + (j - 1), BIGK)
-        better = isv & (key < best_key)
-        best_key = torch.where(better, key, best_key)
-        best_s = torch.where(better, s_c, best_s)
-        prv, e_c, s_c = e_c, e, us
-    # final position j = W (right neighbour +inf); masked positions
-    # carry BIGK and are excluded
-    isv = (e_c <= prv) & (e_c < BIGK)
-    key = torch.where(isv, e_c * 256 + W, BIGK)
-    better = isv & (key < best_key)
-    return (
-        torch.where(better, key, best_key),
-        torch.where(better, s_c, best_s),
-    )
+    rows = torch.arange(1, m + 1, device=dev)  # row i of each diagonal's cells
+    # the last two diagonals, cell (i, d - i) at row index i (0..m):
+    # row 0 is the free start (cost 0); column 0 costs i * UNIT
+    col0 = (torch.arange(m + 1, device=dev) * UNIT).to(i32).expand(H, P, m + 1)
+    zf = torch.zeros((H, P, m + 1), dtype=f32, device=dev)
+    zero_c = torch.zeros((H, P, 1), dtype=i32, device=dev)
+    zero_f = torch.zeros((H, P, 1), dtype=f32, device=dev)
+    prev1 = (col0, zf, zf, zf)  # diagonal 1: (0, 1) and (1, 0)
+    prev2 = (col0, zf, zf, zf)  # diagonal 0: (0, 0)
+    last_c = torch.empty((H, P, W + 1), dtype=i32, device=dev)
+    last_s = torch.zeros((H, P, W + 1), dtype=f32, device=dev)
+    last_c[:, :, 0] = m * UNIT
+    for d in range(2, m + W + 1) if W else ():
+        j = d - rows  # [m]
+        tch = win[:, (j - 1).clamp(0, W - 1)][:, None, :]  # [H, 1, m]
+        lc, lt1, lt2, ls = (a[:, :, 1:] for a in prev1)  # row i @ col j-1
+        uc, ut1, ut2, us = (a[:, :, :-1] for a in prev1)  # row i-1 @ col j
+        dc, dt1, dt2, ds = (a[:, :, :-1] for a in prev2)  # row i-1 @ col j-1
+        eq = (pats & tch) != 0
+        diag = dc + torch.where(eq, 0, UNIT).to(i32)
+        lft = lc + UNIT
+        upc = uc + UNIT
+        c = torch.minimum(torch.minimum(diag, lft), upc)
+        dok = c == diag
+        uok = c == upc
+        mf = (dok & eq).to(f32)
+        a = torch.where(dok, A_DIAG, A_GAP).to(f32)
+        st1 = torch.where(dok, dt1, torch.where(uok, ut1, lt1))
+        st2 = torch.where(dok, dt2, torch.where(uok, ut2, lt2))
+        ss = torch.where(dok, ds, torch.where(uok, us, ls))
+        t1 = a * (st1 + mf)
+        t2 = a * (st2 + mf * st1)
+        s = ss + (mf * a) * st2
+        # cells at column 0 (and before it: unused) keep the boundary
+        inside = (j >= 1)[None, None, :]
+        c = torch.where(inside, c, col0[:, :, 1:])
+        t1, t2, s = (torch.where(inside, x, 0.0) for x in (t1, t2, s))
+        prev2 = prev1
+        prev1 = (torch.cat([zero_c, c], 2), torch.cat([zero_f, t1], 2),
+                 torch.cat([zero_f, t2], 2), torch.cat([zero_f, s], 2))
+        if 1 <= d - m <= W:  # the last row's cell of column d - m
+            last_c[:, :, d - m] = c[:, :, m - 1]
+            last_s[:, :, d - m] = s[:, :, m - 1]
+    # valleys of the last row: position p (0..W) with e[p] <= e[p - 1]
+    # and e[p] < e[p + 1], +inf outside and past each window's length;
+    # the lowest key cost * 256 + p wins (keys are unique)
+    pos = torch.arange(W + 1, device=dev)
+    e = torch.where(pos <= w_len.to(i32)[:, None, None], last_c, BIGK)
+    e[:, :, 0] = m * UNIT
+    big = torch.full((H, P, 1), BIGK, dtype=i32, device=dev)
+    prv = torch.cat([big, e[:, :, :-1]], 2)
+    nxt = torch.cat([e[:, :, 1:], big], 2)
+    isv = (e <= prv) & (e < nxt)
+    key = torch.where(isv, e * 256 + pos.to(i32), BIGK)
+    best_key, best_p = key.min(dim=2)
+    best_s = torch.gather(last_s, 2, best_p[:, :, None])[:, :, 0]
+    return best_key, torch.where(best_key < BIGK, best_s, 0.0)
 
 
 def _launch(wrapper, patterns, windows, w_len, split: int):

@@ -35,6 +35,28 @@ _N_SUMM = {MODE_TRACE: 3, MODE_INTERVAL: 6}
 _MAXM = 128  # csrc/window.cu MAXM
 
 
+_SEG = 2**33  # above any summary value's range (|value| < 2**31)
+
+
+def _seg_min(x, g):
+    """Running minimum of ``x`` [H, m] along rows, restarting where the
+    non-decreasing run index ``g`` changes: each run's values are
+    lowered by _SEG a run, so earlier runs never win."""
+    off = g * _SEG
+    return torch.cummin(x - off, dim=1).values + off
+
+
+def _last_row(flag, rows):
+    """The last row <= each row (1-based) where ``flag`` is set, else 0."""
+    return torch.cummax(torch.where(flag, rows, 0), dim=1).values
+
+
+def _at_row(x, row):
+    """``x`` [H, m] at the 1-based ``row`` of each cell (rows outside
+    1..m clamped; callers mask them)."""
+    return torch.gather(x, 1, (row - 1).clamp(0, x.shape[1] - 1))
+
+
 def window_plain(mode, pat, win, c0, ledge, rpos, ehi, wlen, alpha, ra, rb,
                  k_scaled, klmul):
     """Plain PyTorch version of the kernel, vectorized over lanes.
@@ -43,9 +65,12 @@ def window_plain(mode, pat, win, c0, ledge, rpos, ehi, wlen, alpha, ra, rb,
     (valley) or the end column (trace / interval).  Each column's costs
     come from the closed form of the in-column "up" chain, ``C[i] =
     i*vert + cummin_k(X[k] - k*vert)`` with ``X = min(diag, left)``
-    (exact integer arithmetic); path summaries then run down the column
-    row by row.  Returns (keys [H, 8], count [H]) in valley mode, else
-    the captured [H, 3] / [H, 6] table."""
+    (exact integer arithmetic).  Path summaries run down each column in
+    runs of up moves: a cell not entered from above takes its state from
+    the previous column, and each run below it folds its rows' updates
+    in by segmented scans (:func:`_seg_min` and the like).  Returns
+    (keys [H, 8], count [H]) in valley mode, else the captured [H, 3] /
+    [H, 6] table."""
     dev = win.device
     H, W = win.shape
     m = pat.shape[-1]
@@ -120,37 +145,41 @@ def window_plain(mode, pat, win, c0, ledge, rpos, ehi, wlen, alpha, ra, rb,
             else:
                 in_iv = (u_i >= ra) & (u_i < rb)
                 nonmatch = (in_iv & ~(dok & eq)).to(i64)
-            new = [torch.empty_like(s) for s in S]
-            cur = list(row0)
-            for s in range(ns):
-                new[s][:, 0] = row0[s]
-            for i in range(1, m + 1):
-                d, u = dok[:, i - 1], uok[:, i - 1]
-                v = [
-                    torch.where(d, S[s][:, i - 1], torch.where(u, cur[s], S[s][:, i]))
-                    for s in range(ns)
+            # row i's run starts at g, the last row <= i not entered
+            # from above (0: the run starts at row 0); its rows g..i
+            # (from 1) apply their updates to the state g enters with
+            g = torch.cummax(torch.where(uok, 0, rows_i.expand(H, m)), dim=1).values
+            start = g.clamp(min=1)
+            base = [
+                torch.gather(torch.cat([torch.full((H, 1), r0, dtype=i64, device=dev),
+                                        torch.where(dok, S[s][:, :-1], S[s][:, 1:])],
+                                       dim=1), 1, g)
+                for s, r0 in enumerate(row0)
+            ]
+            if mode == MODE_TRACE:
+                last0 = _last_row(at0, rows_i)
+                cur = [
+                    torch.minimum(base[0], _seg_min(lo_c, g)),
+                    torch.maximum(base[1], -_seg_min(-hi_c, g)),
+                    torch.where(last0 >= start, _at_row(u_j, last0), base[2]),
                 ]
-                if mode == MODE_TRACE:
-                    cur = [
-                        torch.minimum(v[0], lo_c[:, i - 1]),
-                        torch.maximum(v[1], hi_c[:, i - 1]),
-                        torch.where(at0[:, i - 1], u_j[:, i - 1], v[2]),
-                    ]
-                else:
-                    iv = in_iv[:, i - 1]
-                    first = iv & (v[5] == 0)
-                    ui, uj = u_i[:, i - 1], u_j[:, i - 1]
-                    cur = [
-                        torch.where(first, ui, v[0]),
-                        torch.where(first, uj, v[1]),
-                        torch.where(iv, ui, v[2]),
-                        torch.where(iv, uj, v[3]),
-                        v[4] + nonmatch[:, i - 1],
-                        v[5] | iv.to(i64),
-                    ]
-                for s in range(ns):
-                    new[s][:, i] = cur[s]
-            S = new
+            else:
+                last = _last_row(in_iv, rows_i)
+                first = _seg_min(torch.where(in_iv, rows_i, m + 1), g)
+                take = (first <= m) & (base[5] == 0)
+                any_iv = last >= start
+                seen = torch.cumsum(nonmatch, dim=1)
+                before = torch.gather(seen - nonmatch, 1, start - 1)
+                cur = [
+                    torch.where(take, _at_row(u_i, first), base[0]),
+                    torch.where(take, _at_row(u_j, first), base[1]),
+                    torch.where(any_iv, _at_row(u_i, last), base[2]),
+                    torch.where(any_iv, _at_row(u_j, last), base[3]),
+                    base[4] + seen - before,
+                    base[5] | any_iv.to(i64),
+                ]
+            S = [torch.cat([torch.full((H, 1), r0, dtype=i64, device=dev), c], dim=1)
+                 for r0, c in zip(row0, cur)]
             hit = c0 == j
             for o, s in enumerate(order):
                 cap[:, o] = torch.where(hit, S[s][:, m], cap[:, o])

@@ -20,6 +20,7 @@ from typing import List, Optional, Sequence
 
 import torch
 
+from ..models.graphs import compiled
 from ..ops import device as dev_ops
 
 READS_AXIS = "reads"
@@ -54,23 +55,36 @@ def shard_rows(devices: Sequence, *arrays):
     return tuple(out)
 
 
+@compiled(static_argnames=("K",))
+def _flank_shard(pattern, rows, start_col, end_col, lo, hi, k_scaled,
+                 alpha_scaled, K: int):
+    """One shard's flank step: its ``Hits`` and its rows with a hit."""
+    ends = dev_ops.flank_ends(pattern, rows, start_col, end_col, alpha_scaled)
+    h = dev_ops.find_hits(ends, lo, hi, k_scaled, K)
+    return h, h.valid.any(dim=1).sum(dtype=torch.int32)
+
+
 def sharded_flank_step(devices: Sequence, K: int = 16):
     """The sharded flank step over ``devices``: ``step(pattern, rows,
     start_col, end_col, lo, hi, k_scaled, alpha_scaled)`` with the row
     arrays as :func:`shard_rows` gives them runs
     :func:`~barbell_tpu_torch.ops.device.flank_ends` and
     :func:`~barbell_tpu_torch.ops.device.find_hits` on each device's
-    rows and returns (per-device ``Hits``, the rows with a hit summed
-    over the shards, on the first device).  Hits stay with their rows."""
+    rows (one compiled call a shard: on the card a graph replay) and
+    returns (per-device ``Hits``, the rows with a hit summed over the
+    shards, on the first device).  Hits stay with their rows."""
     devs = [torch.device(d) for d in devices]
 
     def step(pattern, rows, start_col, end_col, lo, hi, k_scaled, alpha_scaled):
         hits, found = [], []
         for d, r, s, e, a, b in zip(devs, rows, start_col, end_col, lo, hi):
-            ends = dev_ops.flank_ends(pattern.to(d), r, s, e, alpha_scaled)
-            h = dev_ops.find_hits(ends, a, b, k_scaled, K)
+            h, n = _flank_shard(pattern.to(d), r, s, e, a, b, k_scaled,
+                                alpha_scaled, K=K)
             hits.append(h)
-            found.append(h.valid.any(dim=1).sum(dtype=torch.int32))
-        return hits, sum(f.to(devs[0]) for f in found)
+            found.append(n)
+        total = found[0]
+        for n in found[1:]:
+            total = total + n.to(devs[0])
+        return hits, total
 
     return step

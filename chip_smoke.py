@@ -86,11 +86,17 @@ Phases (any failure exits non-zero and prints no result line):
    on the card, timed and bounded ("fine-rows whole-read" entries);
 13. ``[pack1]`` — ``BARBELL_PACK_MODE=1`` (padded 2-bit rows) against
    pack mode 2 on the first ends and whole-read batches: equal tables;
-14. the staged composites (``[stage_ops]``) — ``flank_scan``,
-   ``flank_trace`` and ``barcode_rank`` on the card at the ends shapes
-   (the first ends batch's rows, its first 2816 hits), each equal to its
-   CPU route (the kernels' plain versions) on the same inputs, the trace
-   and the rank to their ``_reference`` variants on the card;
+14. the compiled device functions (``[stage_ops]``) — the staged
+   composites ``flank_scan``, ``flank_trace``, ``barcode_rank`` and
+   their ``_reference`` variants, the six stage functions of
+   ``ops/device.py`` and ``sharded_flank_step(["cuda:0"] * 2)`` on the
+   card at the ends shapes (the first ends batch's rows, its first 2816
+   hits), each called twice with one key: a CUDA-graph capture, then a
+   replay with no ``cudaLaunchKernel`` and one ``cudaGraphLaunch`` (a
+   shard); both byte-equal to ``fn.__wrapped__`` on the card and to the
+   CPU route (the kernels' plain versions), the trace and the rank to
+   their ``_reference`` variants; eager and replay launch calls and ms,
+   capture ms and reserved MiB, beside the card's name and power limit;
 15. kernels at the whole-read paths' and the extended path's shapes,
    recorded from their batches (the extended ones with the fusion
    template's flank and patterns), and the Myers kernel on the
@@ -2440,18 +2446,86 @@ def _require(launches, names, what):
         raise AssertionError(f"{what}: kernels {missing} never launched")
 
 
-def check_stage_ops(ends_reads, wrappers) -> dict:
-    """The staged composites on the card at the ends shapes (the first
-    ends batch's shallow-tier rows, nibble-packed): ``flank_scan`` over
-    its rows and rc twins, ``flank_trace`` over its hits, ``barcode_rank``
-    over each hit's mask region widened by the padding: each equal to
-    its CPU route (the kernels' plain versions) on the same inputs, and
-    the traces and ranks to their ``_reference`` variants (move table +
-    traceback, on the card) where the lane is valid.  Returns the
-    launches of the card routes."""
+def _leaves(out) -> list:
+    """The tensors of a compiled function's output, in order."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    return [t for o in (out or ()) for t in _leaves(o)]
+
+
+@contextlib.contextmanager
+def _as_written():
+    """Compiled functions called inside run as written, as they do inside
+    another compiled call: ``fn.__wrapped__`` with its nested compiled
+    calls eager too."""
+    from barbell_tpu_torch.models import graphs
+
+    graphs._inline.depth = getattr(graphs._inline, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        graphs._inline.depth -= 1
+
+
+def _runtime_of(fn) -> tuple:
+    """(result, {CUDA runtime call: count}) of one call of ``fn`` under
+    torch.profiler (host-side API calls; no device record needed)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            events = json.load(fh)["traceEvents"]
+    calls = {}
+    for e in events:
+        if e.get("cat") == "cuda_runtime" and e.get("ph") == "X":
+            name = e["name"].split("_v")[0]
+            calls[name] = calls.get(name, 0) + 1
+    return out, calls
+
+
+def _wall_ms_per_call(fn, reps: int) -> float:
+    """Host ms per call of ``fn`` over ``reps`` calls, the device drained
+    before and after."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1000 / reps
+
+
+def check_stage_ops(ends_reads, wrappers, smi) -> dict:
+    """The compiled device functions on the card at the ends shapes (the
+    first ends batch's shallow-tier rows, nibble-packed): the staged
+    composites ``flank_scan`` over its rows and rc twins, ``flank_trace``
+    over its hits, ``barcode_rank`` over each hit's mask region widened
+    by the padding, their ``_reference`` variants, the six stage
+    functions of ``ops/device.py`` at the shapes the references give
+    them, and ``sharded_flank_step(["cuda:0"] * 2)`` over the scan rows.
+    Each compiled function is called twice with one key: a capture, then
+    a replay, which must make no ``cudaLaunchKernel`` and one
+    ``cudaGraphLaunch`` (one a shard for the flank step; the shards'
+    count sum is outside the graphs); both results, ``fn.__wrapped__``
+    on the card and the CPU route (the kernels' plain versions) are
+    byte-equal, and the traces and ranks equal their references where
+    the lane is valid.  Prints, for each, the eager call's
+    ``cudaLaunchKernel`` calls and ms, the replay's ``cudaGraphLaunch``
+    calls and ms, the capture ms and the reserved MiB, beside the card.
+    Returns the kernels' launches in the card calls."""
     from barbell_tpu_torch import PADDING
+    from barbell_tpu_torch.models import graphs
     from barbell_tpu_torch.models.pipeline import TorchDemuxEngine
     from barbell_tpu_torch.ops import composite as comp
+    from barbell_tpu_torch.ops import device as dev_ops
+    from barbell_tpu_torch.ops.oracle import COST_SCALE
+    from barbell_tpu_torch.parallel import mesh
     from barbell_tpu_torch.stages.kit import kit_groups
 
     eng = TorchDemuxEngine(kit_groups(KIT), ends_window=(512, 512), device="cuda")
@@ -2477,43 +2551,91 @@ def check_stage_ops(ends_reads, wrappers) -> dict:
         return torch.from_numpy(np.ascontiguousarray(a)).to(d)
 
     launches = {w.__name__: 0 for w in wrappers}
+    capture_ms = []
+    cache = graphs.COMPILED
+    capture = cache._capture
 
-    def run(what, card, host, ref=None, valid=None):
+    def timed_capture(fn, inputs, device):
+        t0 = time.perf_counter()
+        out = capture(fn, inputs, device)
+        torch.cuda.synchronize()
+        capture_ms.append((time.perf_counter() - t0) * 1000)
+        return out
+
+    cache._capture = timed_capture
+    cache.clear()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    mib = 2.0 ** 20
+    reserved0 = torch.cuda.memory_reserved() / mib
+    names = []
+
+    def run(what, fn, card, host, kw, graph_launches=1, ref=None, valid=None):
+        """Capture, replay, eager and CPU route of ``fn`` (card and host
+        argument lists; one key, so the first call captures one graph and
+        a second call replays it ``graph_launches`` times, each launch
+        beyond the first a shard's and one more kernel, the shards'
+        sum); returns the card result."""
         before = {w.__name__: w.launches for w in wrappers}
-        got = card()
+        n_caps = len(capture_ms)
+        first = fn(*card, **kw)
         torch.cuda.synchronize()
         used = {w.__name__: w.launches - before[w.__name__] for w in wrappers
                 if w.launches > before[w.__name__]}
         for n, c in used.items():
             launches[n] += c
+        if len(capture_ms) != n_caps + 1:
+            raise AssertionError(f"[stage_ops] {what}: {len(capture_ms) - n_caps} "
+                                 f"captures on the first call, want 1")
+        cap_ms = sum(capture_ms[n_caps:])
+        reserved = torch.cuda.memory_reserved() / mib
+        replays = cache.replays
+        second, rt = _runtime_of(lambda: fn(*card, **kw))
+        if (rt.get("cudaLaunchKernel", 0) != graph_launches - 1
+                or rt.get("cudaGraphLaunch", 0) != graph_launches
+                or cache.replays - replays != graph_launches):
+            raise AssertionError(f"[stage_ops] {what}: the replay made {rt}, "
+                                 f"{cache.replays - replays} replays")
+        with _as_written():
+            eager, rt_eager = _runtime_of(lambda: fn(*card, **kw))
+            eager_ms = _wall_ms_per_call(lambda: fn(*card, **kw), 3)
+        replay_ms = _wall_ms_per_call(lambda: fn(*card, **kw), 10)
         t0 = time.perf_counter()
-        want = host()
+        want = fn(*host, **kw)
         t_cpu = time.perf_counter() - t0
-        tup = lambda x: x if isinstance(x, tuple) else (x,)  # noqa: E731
-        _diff([g.cpu() for g in tup(got)], [w.cpu() for w in tup(want)])
+        got = [t.cpu() for t in _leaves(first)]
+        for other, name in ((second, "replay"), (eager, "__wrapped__"),
+                            (want, "CPU route")):
+            try:
+                _diff(got, [t.cpu() for t in _leaves(other)])
+            except AssertionError as exc:
+                raise AssertionError(f"[stage_ops] {what}: capture vs {name}: {exc}")
         extra = ""
         if ref is not None:
-            r = ref()
-            _diff((got[valid],), (r[valid],))
+            _diff((first[valid],), (ref[valid],))
             extra = f"; = its _reference on {int(valid.sum())} valid lanes"
-        log(f"[stage_ops] {what}: card = CPU route ({t_cpu:.1f}s on the CPU){extra}; "
-            f"launches {used}")
-        return got
+        log(f"[stage_ops] {what}: capture = replay = __wrapped__ = CPU route "
+            f"({t_cpu:.1f}s on the CPU){extra}; launches {used}")
+        log(f"[stage_ops] {what}: eager {rt_eager.get('cudaLaunchKernel', 0)} "
+            f"cudaLaunchKernel, {eager_ms:.3f} ms a call; replay "
+            f"{rt.get('cudaGraphLaunch', 0)} cudaGraphLaunch, "
+            f"{rt.get('cudaLaunchKernel', 0)} cudaLaunchKernel, {replay_ms:.3f} ms a "
+            f"call; capture {cap_ms:.1f} ms; reserved {reserved:.0f} MiB "
+            f"(+{reserved - reserved0:.0f} since the phase began); {smi}")
+        names.append(what.split(" ")[0])
+        return first
 
     alpha = eng.alpha_scaled
-    args = {d: (gp.tensors.flank.to(d), gp.tensors.patw.to(d), on(d, mat.host_packed),
-                on(d, mat.simple_idx[:S_pad]), *(on(d, cols[c]) for c in cols))
+    args = {d: [gp.tensors.flank.to(d), gp.tensors.patw.to(d), on(d, mat.host_packed),
+                on(d, mat.simple_idx[:S_pad]), *(on(d, cols[c]) for c in cols), alpha]
             for d in (dev, cpu)}
-    scan = {}
-
-    def flank_scan(d):
-        scan[d.type] = comp.flank_scan(*args[d], alpha, K=K, m=m, k_units=k)
-        return scan[d.type].packed
-
-    packed = run(f"flank_scan rows [{R_host} + {S_pad} rc twins, {L}] (nibble-packed), "
-                 f"K = {K}", lambda: flank_scan(dev), lambda: flank_scan(cpu))
-    rows = scan[dev.type].rows
-    pos, cost, valid, _count = (x.cpu().numpy() for x in comp.unpack_flank_scan(packed, K))
+    scan = run(f"flank_scan rows [{R_host} + {S_pad} rc twins, {L}] (nibble-packed), "
+               f"K = {K}", comp.flank_scan, args[dev], args[cpu],
+               dict(K=K, m=m, k_units=k))
+    rows = scan.rows
+    rows_on = {dev: rows, cpu: rows.cpu()}
+    pos, cost, valid, _count = (x.cpu().numpy()
+                                for x in comp.unpack_flank_scan(scan.packed, K))
     # the first hits, as many as a full ends batch's lanes
     hrow, slot = (a[:H_ENDS] for a in np.nonzero(valid))
     hcol = pos[hrow, slot]
@@ -2524,37 +2646,95 @@ def check_stage_ops(ends_reads, wrappers) -> dict:
     rpos = np.where(te[hrow] & (hcol == tec[hrow]), end_j, -1).astype(np.int32)
     hv = np.ones(len(hrow), dtype=bool)
     tr_np = (hrow.astype(np.int32), s_col.astype(np.int32), ledge, rpos, end_j, hv)
-    tr_args = {d: [on(d, a) for a in tr_np] for d in (dev, cpu)}
     ra, rb = gp.mask_start, gp.mask_end
-    rows_on = {dev: rows, cpu: scan[cpu.type].rows}
-
-    def trace(d, fn=comp.flank_trace):
-        return fn(gp.tensors.flank.to(d), rows_on[d], *tr_args[d], ra, rb, alpha, m=m, W=Wf)
-
-    tr = run(f"flank_trace [{len(hrow)} lanes, {Wf}]", lambda: trace(dev),
-             lambda: trace(cpu), lambda: trace(dev, comp.flank_trace_reference),
-             torch.from_numpy(hv).to(dev))
+    tr_args = {d: [gp.tensors.flank.to(d), rows_on[d], *(on(d, a) for a in tr_np),
+                   ra, rb, alpha] for d in (dev, cpu)}
+    fkw = dict(m=m, W=Wf)
+    tr_ref = run(f"flank_trace_reference [{len(hrow)} lanes, {Wf}]",
+                 comp.flank_trace_reference, tr_args[dev], tr_args[cpu], fkw)
+    tr = run(f"flank_trace [{len(hrow)} lanes, {Wf}]", comp.flank_trace, tr_args[dev],
+             tr_args[cpu], fkw, ref=tr_ref, valid=torch.from_numpy(hv).to(dev))
     tr = tr.cpu().numpy()
     Wb = gp.barcode_window
     has = tr[:, 3] != 0
     b_start = np.maximum(0, s_col + tr[:, 1] - PADDING).astype(np.int32)
     b_len = np.where(has, np.minimum(Wb, tr[:, 2] - tr[:, 1] + 1 + 2 * PADDING), 0)
     b_len = b_len.astype(np.int32)
-    pats = gp.tensors.patterns_all[: gp.n_patterns]
+    P = gp.n_patterns
+    pats = gp.tensors.patterns_all[:P]
     scal = (gp.k1_scaled, gp.rel_bar_start, gp.rel_bar_end,
             float(np.float32(gp.perfect)), float(np.float32(eng.min_score)),
             float(np.float32(eng.min_score_diff)))
-    br_args = {d: [on(d, a) for a in (hrow.astype(np.int32), b_start, b_len, has)]
+    br_np = (hrow.astype(np.int32), b_start, b_len, has)
+    br_args = {d: [pats.to(d), rows_on[d], *(on(d, a) for a in br_np), *scal]
                for d in (dev, cpu)}
-
-    def rank(d, fn=comp.barcode_rank):
-        return fn(pats.to(d), rows_on[d], *br_args[d], *scal, m=gp.plen, W=Wb)
-
-    br = run(f"barcode_rank [{len(hrow)} lanes, {Wb}] x {gp.n_patterns} patterns",
-             lambda: rank(dev), lambda: rank(cpu),
-             lambda: rank(dev, comp.barcode_rank_reference), torch.from_numpy(has).to(dev))
+    bkw = dict(m=gp.plen, W=Wb)
+    br_ref = run(f"barcode_rank_reference [{len(hrow)} lanes, {Wb}] x {P} patterns",
+                 comp.barcode_rank_reference, br_args[dev], br_args[cpu], bkw)
+    br = run(f"barcode_rank [{len(hrow)} lanes, {Wb}] x {P} patterns", comp.barcode_rank,
+             br_args[dev], br_args[cpu], bkw, ref=br_ref,
+             valid=torch.from_numpy(has).to(dev))
     log(f"[stage_ops] barcode_rank: {int(br[:, 1].sum())} of {int(has.sum())} lanes with "
         f"a region accepted")
+
+    # the stage functions at the shapes barcode_rank_reference gives them
+    H = len(hrow)
+    wins = {d: comp._masked_windows(rows_on[d], on(d, br_np[0]), on(d, b_start),
+                                    on(d, b_len), Wb) for d in (dev, cpu)}
+    no_edge = {d: torch.zeros(H, dtype=torch.bool, device=d) for d in (dev, cpu)}
+    no_right = {d: torch.full((H,), -1, dtype=torch.int32, device=d) for d in (dev, cpu)}
+    dp_args = {d: [pats.to(d), wins[d], no_edge[d], no_right[d], COST_SCALE]
+               for d in (dev, cpu)}
+    bdp = run(f"window_dp [{H} lanes, {Wb}] x {P} patterns, m = {gp.plen}",
+              dev_ops.window_dp, dp_args[dev], dp_args[cpu], {})
+    best_args = {d: [bdp.ends.to(d), on(d, b_len)] for d in (dev, cpu)}
+    best = run(f"best_valley_per_pattern [{H}, {P}, {Wb + 1}]",
+               dev_ops.best_valley_per_pattern, best_args[dev], best_args[cpu], {})
+    in_k1 = best.cost <= gp.k1_scaled
+    cand = ((in_k1.sum(dim=1) <= 1)[:, None] | in_k1) & torch.from_numpy(has).to(dev)[:, None]
+    tb_args = {d: [bdp.moves.to(d), best.pos.to(d), cand.to(d), 0, -1, scal[1], scal[2]]
+               for d in (dev, cpu)}
+    run(f"traceback_reduce [{gp.plen}, {H}, {P}, {Wb + 1}] moves",
+        dev_ops.traceback_reduce, tb_args[dev], tb_args[cpu], dict(m=gp.plen, W=Wb))
+    sum_args = {d: [pats[None].to(d), wins[d], no_edge[d], no_right[d], COST_SCALE, 0, -1,
+                    scal[1], scal[2]] for d in (dev, cpu)}
+    run(f"window_dp_summary [{H} lanes, {Wb}] x {P} patterns, with_lodhi",
+        dev_ops.window_dp_summary, sum_args[dev], sum_args[cpu], dict(with_lodhi=True))
+
+    # the flank stages over the scan rows, alone and as the mesh's step
+    R = rows.shape[0]
+    row_cols = [cols[c] for c in ("start_col", "end_col", "lo", "hi")]
+    fe_args = {d: [gp.tensors.flank.to(d), rows_on[d], *(on(d, a) for a in row_cols[:2]),
+                   alpha] for d in (dev, cpu)}
+    ends = run(f"flank_ends rows [{R}, {L}], m = {m}", dev_ops.flank_ends,
+               fe_args[dev], fe_args[cpu], {})
+    k_scaled = k * COST_SCALE
+    fh_args = {d: [ends.to(d), *(on(d, a) for a in row_cols[2:]), k_scaled]
+               for d in (dev, cpu)}
+    run(f"find_hits [{R}, {L + 1}], K = {K}", dev_ops.find_hits, fh_args[dev],
+        fh_args[cpu], dict(K=K))
+    devices = [dev] * 2
+    step = mesh.sharded_flank_step(devices, K=K)
+    step_cpu = mesh.sharded_flank_step([cpu] * 2, K=K)
+    st_args = {d: [gp.tensors.flank.to(d), *mesh.shard_rows([d] * 2, rows_on[d].cpu(),
+                                                             *row_cols),
+                   k_scaled, alpha] for d in (dev, cpu)}
+
+    def flank_step(*a):
+        hits, found = (step if a[1][0].is_cuda else step_cpu)(*a)
+        return tuple(hits) + (found,)
+
+    flank_step.__name__ = "sharded_flank_step"
+    run(f"sharded_flank_step(['cuda:0'] * 2) rows 2 x [{R // 2}, {L}]", flank_step,
+        st_args[dev], st_args[cpu], {}, graph_launches=2)
+    cache.clear()
+    cache._capture = capture
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"[stage_ops] {len(names)} compiled functions, each captured once and "
+        f"replayed; reserved {torch.cuda.memory_reserved() / mib:.0f} MiB after dropping "
+        f"the cache, {torch.cuda.memory_allocated() / mib:.0f} MiB of it the phase's live "
+        f"results (was {reserved0:.0f} MiB when the phase began)")
     return launches
 
 
@@ -2686,7 +2866,7 @@ def main() -> int:
             by_path["pack1"] = check_pack1(ends_reads, whole_reads, wrappers)
             _require(by_path["pack1"], on_path, "[pack1]")
         with timed("stage_ops"):
-            by_path["stage_ops"] = check_stage_ops(ends_reads, wrappers)
+            by_path["stage_ops"] = check_stage_ops(ends_reads, wrappers, smi)
             _require(by_path["stage_ops"], on_path[:4] + ["rank_pass1"], "[stage_ops]")
 
     with timed("whole-read kernels"):

@@ -12,6 +12,7 @@ import random
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # one intra-op thread a test worker: the workers share the CPUs
 
 from barbell_tpu import cli as reference_cli  # noqa: E402
 from barbell_tpu.kits import database as db  # noqa: E402

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # one intra-op thread a test worker: the workers share the CPUs
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 

@@ -14,6 +14,7 @@ import socket
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # one intra-op thread a test worker: the workers share the CPUs
 jax = pytest.importorskip("jax")
 
 from barbell_tpu.models.barcodes import BarcodeGroup  # noqa: E402

@@ -11,6 +11,7 @@ import random
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # one intra-op thread a test worker: the workers share the CPUs
 
 from barbell_tpu_torch.models.barcodes import BarcodeGroup  # noqa: E402
 from barbell_tpu_torch.models.demux import Demuxer  # noqa: E402

@@ -2,10 +2,10 @@
 (``barbell_tpu_torch/models/graphs.py``), the counterpart of the JAX
 engine's ``jax.jit`` cache, on the CPU:
 
-* capture safety: the fused call makes no host sync and takes no shape
-  from data (what a CUDA-graph capture cannot hold), on every path it
-  serves; the kernels' plain versions are exempt, since on the card the
-  kernels stand in their place;
+* capture safety: the fused call makes no host sync, reads no tensor on
+  the host and takes no shape from data (what a CUDA-graph capture
+  cannot hold), on every path it serves; the kernels' plain versions
+  are exempt, since on the card the kernels stand in their place;
 * the cache key splits a run of batches exactly where the JAX engine's
   static arguments (``_group_statics`` / ``_fused_statics`` and the
   blob's spans) do, with both engines' device calls stubbed out;
@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # one intra-op thread a test worker: the workers share the CPUs
 jax = pytest.importorskip("jax")
 
 from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
@@ -45,11 +46,17 @@ KERNELS = ("myers_topk", "window_valleys", "window_trace", "window_interval",
            "rank_pass1_split", "rank_pass1")
 
 
+def _tensors(out):
+    return [out] if isinstance(out, torch.Tensor) else [
+        t for t in out if isinstance(t, torch.Tensor)]
+
+
 class _Rerun:
-    """CPU stand-in for a captured graph: its output is allocated once
-    and each replay reruns the call on the same static inputs into it,
-    with the wrappers' launch counts held back as a graph's replay
-    holds them (the cache counts them)."""
+    """CPU stand-in for a captured graph: its output (a tensor, or a
+    tuple holding tensors) is allocated once and each replay reruns the
+    call on the same static inputs into it, with the wrappers' launch
+    counts held back as a graph's replay holds them (the cache counts
+    them)."""
 
     def __init__(self, fn, inputs):
         self.fn, self.inputs = fn, inputs
@@ -57,7 +64,9 @@ class _Rerun:
 
     def replay(self):
         with _build.recording_launches():
-            self.output.copy_(self.fn(self.inputs))
+            new = self.fn(self.inputs)
+        for static, t in zip(_tensors(self.output), _tensors(new)):
+            static.copy_(t)
 
 
 def _standin(fn, inputs, device):
@@ -75,9 +84,18 @@ def _graph_engine(engine, capture=_standin, per_key=8, max_keys=16):
 # ------------------------------------------------------------ capture safety
 
 
+#: Tensor methods that read a tensor on the host; ``tolist`` dispatches
+#: no op at all and ``numpy`` only ``aten.detach``, so the dispatch mode
+#: alone cannot see them
+HOST_READS = ("tolist", "numpy", "item", "__int__", "__float__", "__bool__",
+              "__index__")
+
+
 class _NoSync(TorchDispatchMode):
     """Raises on an op that makes the host wait for the device or takes
-    an output shape from data, outside the exempt kernel calls."""
+    an output shape from data, and on a host read of a tensor
+    (``HOST_READS``, patched onto ``torch.Tensor`` while the mode is
+    on), outside the exempt kernel calls."""
 
     NAMES = ("_local_scalar_dense", "nonzero", "masked_select", "bincount",
              "is_nonzero", "equal", "allclose")
@@ -86,6 +104,32 @@ class _NoSync(TorchDispatchMode):
         super().__init__()
         self.exempt = 0
         self.ops = 0
+        self._saved = []
+
+    def _guard(self, name, orig):
+        def read(t, *args, **kwargs):
+            if not self.exempt:
+                raise AssertionError(f"host read Tensor.{name} in a captured call")
+            return orig(t, *args, **kwargs)
+
+        return read
+
+    def __enter__(self):
+        saved = {n: torch.Tensor.__dict__.get(n) for n in HOST_READS}
+        self._saved.append(saved)
+        for n in HOST_READS:
+            setattr(torch.Tensor, n, self._guard(n, getattr(torch.Tensor, n)))
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        try:
+            return super().__exit__(*exc)
+        finally:
+            for n, orig in self._saved.pop().items():
+                if orig is None:
+                    delattr(torch.Tensor, n)
+                else:
+                    setattr(torch.Tensor, n, orig)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -100,7 +144,7 @@ class _NoSync(TorchDispatchMode):
                 bad = bad or any(isinstance(i, torch.Tensor) and i.dtype == torch.bool
                                  for i in args[1] if i is not None)
             if bad:
-                raise AssertionError(f"capture-unsafe op {func} in the fused call")
+                raise AssertionError(f"capture-unsafe op {func} in a captured call")
         return func(*args, **kwargs)
 
 

@@ -9,7 +9,8 @@ import random
 
 import pytest
 
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # one intra-op thread a test worker: the workers share the CPUs
 
 from barbell_tpu import cli as reference_cli  # noqa: E402
 from barbell_tpu.sim.simulate import (  # noqa: E402

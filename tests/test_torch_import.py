@@ -15,6 +15,7 @@ import sys
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # one intra-op thread a test worker: the workers share the CPUs
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # one intra-op thread a test worker: the workers share the CPUs
 jax = pytest.importorskip("jax")
 
 from barbell_tpu.models import hittable  # noqa: E402

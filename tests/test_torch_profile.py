@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # one intra-op thread a test worker: the workers share the CPUs
 
 from barbell_tpu_torch.models.barcodes import BarcodeGroup  # noqa: E402
 from barbell_tpu_torch.ops.edit_model import get_edit_cut_off  # noqa: E402
