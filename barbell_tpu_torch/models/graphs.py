@@ -337,6 +337,19 @@ def _unflatten(spec, leaves):
     return cls(*items) if hasattr(cls, "_fields") else cls(items)
 
 
+def _tensor_tree(value):
+    """(structure, tensors) of a tuple or list holding tensors (nested,
+    as :func:`_flatten` gives them), or None for anything else."""
+    if not isinstance(value, (tuple, list)) or not value:
+        return None
+    leaves: list = []
+    try:
+        spec = _flatten(tuple(value), leaves)
+    except TypeError:
+        return None
+    return (spec, leaves) if leaves else None
+
+
 def compiled(static_argnames=(), by_value=()):
     """Decorator: the port's ``functools.partial(jax.jit,
     static_argnames=static_argnames)``.
@@ -348,7 +361,9 @@ def compiled(static_argnames=(), by_value=()):
     which a graph bakes in; JAX traces them) and each tensor argument's
     shape, dtype and device; every other Python or numpy scalar becomes
     a 0-d tensor on the device (int32, float32 or bool, as JAX traces
-    it), so one graph serves every value.  A key's first call runs the
+    it), so one graph serves every value.  A tuple or list of tensors
+    (nested) is an argument as JAX takes a pytree: each tensor an input,
+    its structure and shapes part of the key.  A key's first call runs the
     function eagerly and captures it (:meth:`GraphCache.run`); later
     calls copy their tensors into the graph's static inputs and replay
     it on the current stream.  The result is a tensor, or a tuple or
@@ -367,13 +382,18 @@ def compiled(static_argnames=(), by_value=()):
             bound = sig.bind(*args, **kwargs)
             bound.apply_defaults()
             arguments = bound.arguments
-            device = _graph_device(a for a in arguments.values()
-                                   if isinstance(a, torch.Tensor))
+            trees = {name: tree for name, value in arguments.items()
+                     if name not in static_argnames
+                     and (tree := _tensor_tree(value)) is not None}
+            device = _graph_device(
+                [a for a in arguments.values() if isinstance(a, torch.Tensor)]
+                + [t for _spec, leaves in trees.values() for t in leaves])
             if (device is None or getattr(_inline, "depth", 0)
                     or (device.type == "cuda" and torch.cuda.is_current_stream_capturing())):
                 return fn(*args, **kwargs)
             fixed: Dict[str, Any] = {}
             inputs: Dict[str, torch.Tensor] = {}
+            tree_specs: Dict[str, tuple] = {}
             key: List[Hashable] = [fn]
             for name, value in arguments.items():
                 if name in static_argnames:
@@ -387,6 +407,13 @@ def compiled(static_argnames=(), by_value=()):
                 elif isinstance(value, torch.Tensor):
                     inputs[name] = value.to(device)
                     key.append((name, tuple(value.shape), value.dtype, device))
+                elif name in trees:
+                    spec, leaves = trees[name]
+                    tree_specs[name] = (spec, len(leaves))
+                    for i, t in enumerate(leaves):
+                        inputs[f"{name}.{i}"] = t.to(device)
+                    key.append((name, spec, tuple((tuple(t.shape), t.dtype)
+                                                  for t in leaves), device))
                 elif _scalar_dtype(value) is not None:
                     dtype = _scalar_dtype(value)
                     staged = torch.tensor(value, dtype=dtype)
@@ -403,9 +430,12 @@ def compiled(static_argnames=(), by_value=()):
                                     f"nor a scalar; name it static")
 
             def body(inp):
+                args = {n: t for n, t in inp.items() if n in arguments}
+                for name, (spec, n) in tree_specs.items():
+                    args[name] = _unflatten(spec, [inp[f"{name}.{i}"] for i in range(n)])
                 _inline.depth = getattr(_inline, "depth", 0) + 1
                 try:
-                    out = fn(**fixed, **inp)
+                    out = fn(**fixed, **args)
                 finally:
                     _inline.depth -= 1
                 leaves: list = []

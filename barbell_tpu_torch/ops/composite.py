@@ -570,14 +570,27 @@ def demux_call_fused(
     flat buffers (see the module doc) concatenated in group order; each
     group's length follows its own record layout
     (:func:`rec_wire_spec`)."""
+    outs = demux_call_groups(
+        groups, parts, K=K, H_cap=H_cap, pack_mode=pack_mode, L_rows=L_rows,
+        S_pad=S_pad, ends_w=ends_w, ends_wr=ends_wr, halo=halo, padding=padding,
+        cat_align=cat_align, spans=spans)
+    return torch.cat(outs) if len(outs) > 1 else outs[0]
+
+
+def demux_call_groups(groups, parts, *, K: int, H_cap: int, pack_mode: int,
+                      L_rows: int, S_pad: int, ends_w: int, ends_wr: int,
+                      halo: int, padding: int, cat_align: int = CAT_ALIGN,
+                      spans=None) -> list:
+    """:func:`demux_call_fused`'s groups' flat buffers, one a group in
+    group order, before their concatenation (each ends in the group's
+    hit total)."""
     if spans is not None:
         parts = _blob_parts(parts, spans)
     rows, meta = batch_rows(parts, pack_mode=pack_mode, L_rows=L_rows,
                             S_pad=S_pad, ends_w=ends_w, ends_wr=ends_wr,
                             halo=halo, padding=padding, cat_align=cat_align)
-    outs = [_group_body(rows, meta, g, K=K, H_cap=H_cap, padding=padding,
+    return [_group_body(rows, meta, g, K=K, H_cap=H_cap, padding=padding,
                         ends_w=ends_w, ends_wr=ends_wr) for g in groups]
-    return torch.cat(outs) if len(outs) > 1 else outs[0]
 
 
 def demux_call_mono(group: GroupArgs, blob, *, spans, **statics):

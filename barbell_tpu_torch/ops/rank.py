@@ -62,17 +62,36 @@ def rank_pass1_plain(patterns, windows, w_len, split: int = 0):
     over each anti-diagonal of the DP (cell (i, j) needs (i-1, j-1),
     (i, j-1) and (i-1, j), all on the two diagonals before it); the f32
     Lodhi update runs as separate elementwise ops (each rounded), in the
-    reference's order.  The valley scan then runs over the last row."""
+    reference's order.  The valley scan then runs over the last row.
+    A lane with ``w_len <= 0`` has no cell to rank: its only valley is
+    position 0 (key ``m * UNIT * 256``, score 0), and the DP runs over
+    the other lanes alone."""
     windows, P = _prepare(patterns, windows, split)
     dev = windows.device
-    H, W = windows.shape
     m = patterns.shape[1]
     i32, f32 = torch.int32, torch.float32
-    pidx = torch.arange(P, device=dev)[None, :].expand(H, P)
+    pidx = torch.arange(P, device=dev)[None, :].expand(windows.shape[0], P)
     if split:
-        pidx = pidx + torch.where(torch.arange(H, device=dev) >= split, P, 0)[:, None]
-    pats = patterns.to(i32)[pidx]  # [H, P, m]
-    win = windows.to(i32)
+        pidx = pidx + torch.where(torch.arange(windows.shape[0], device=dev) >= split,
+                                  P, 0)[:, None]
+    live = torch.nonzero(w_len > 0)[:, 0]
+    if live.numel() < windows.shape[0]:
+        key = torch.full(pidx.shape, m * UNIT * 256, dtype=i32, device=dev)
+        lodhi = torch.zeros(pidx.shape, dtype=f32, device=dev)
+        if live.numel():
+            key[live], lodhi[live] = _rank_lanes(patterns.to(i32)[pidx[live]],
+                                                 windows[live].to(i32), w_len[live])
+        return key, lodhi
+    return _rank_lanes(patterns.to(i32)[pidx], windows.to(i32), w_len)
+
+
+def _rank_lanes(pats, win, w_len):
+    """:func:`rank_pass1_plain` on each lane's own pattern stack ``pats``
+    [H, P, m] int32 over its window ``win`` [H, W] int32 (W even)."""
+    dev = win.device
+    H, P, m = pats.shape
+    W = win.shape[1]
+    i32, f32 = torch.int32, torch.float32
     rows = torch.arange(1, m + 1, device=dev)  # row i of each diagonal's cells
     # the last two diagonals, cell (i, d - i) at row index i (0..m):
     # row 0 is the free start (cost 0); column 0 costs i * UNIT

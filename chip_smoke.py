@@ -33,6 +33,25 @@ Phases (any failure exits non-zero and prints no result line):
    whose barcode differs from the simulator's truth run again on the
    scalar oracle backend, which must write the same rows (``[kit_extended]
    misassigned``);
+4b. (run after 14, with the mesh steps of 7 and the kit paths'
+   ``[graphs]`` of 10: run before 11 they left ``[upload]``'s profiler
+   traces without their host-to-device copy records) the kit paths
+   beyond the rapid kit — 16384 reads each of
+   ``make_reads_kit``'s model of SQK-NBD114-96 (the construct at both
+   ends) and of EXP-PBC096 (the left template's construct at the start,
+   the right one's reverse complemented at the end) through
+   ``demux_using_kit``, safe and ``--maximize`` (``kit_nbd``,
+   ``kit_nbd_max``, ``kit_pcr``, ``kit_pcr_max``): every device call at
+   the plan's tiers (safe NBD and PCR plans have no deep tier; under
+   ``--maximize`` the deep tier runs at least its warm-up), EXP-PBC096's
+   two groups one fused call a batch, each on-path kernel once per group
+   per call, accuracy and oracle parity as below; then ``[kits]``: 256
+   reads of one alias of every other registered family (KITS_READS; the
+   flagship's, the two kits' and compare's SQK-RBK110-96 run elsewhere)
+   through ``demux_using_kit`` (safe), each kernel launched once per
+   group per call, the stage files of its first 64 reads byte-identical
+   to the oracle backend's, one line a family with its plan, shapes,
+   launches and accuracy (not gated);
 5. two-group checks on the card — the fused dispatch against the
    per-group dispatch on the extended path's first batch, on reads with
    a mid-read fusion construct and on EXP-PBC096 reads (Ftag + rc Rtag,
@@ -53,6 +72,11 @@ Phases (any failure exits non-zero and prints no result line):
    2)`` (and one card a shard where several are visible) on the first two
    batches of the ends, extended and whole-read paths, equal to the
    one-device engine, with each kernel launched once per shard and group;
+   and the mesh's public demux steps (``sharded_demux_step``, ``_mono``
+   and ``_fused``) on ``["cuda:0"] * 2``, each shard's buffer byte-equal
+   to the two-shard engine's device call (whose table equals the
+   one-device engine's), a replay making no ``cudaLaunchKernel`` and one
+   ``cudaGraphLaunch`` a shard plus one for the hit sum;
 8. record striping (``[shard]``) — ``annotate --kit --shard-rank r
    --shard-world 2`` as two processes at once on the card over the
    whole-read set, merged byte-identical to the one-process run;
@@ -64,7 +88,9 @@ Phases (any failure exits non-zero and prints no result line):
    captured and replayed, peak reserved memory, fetch against dispatch;
    the TSV equals the untraced pass's;
 10. CUDA graphs (``[graphs]``) — the first three batches of the ends,
-   extended and whole-read paths and one forced overflow retry, graphs
+   extended and whole-read paths (and, after ``[stage_ops]``, of the
+   four kit paths: run before ``[upload]`` they left its traces without
+   their host-to-device copy records), and one forced overflow retry, graphs
    against the eager call: every device call's buffer byte-equal and
    every table equal on a first pass (captures), a second (no capture,
    one ``cudaGraphLaunch`` a shard a device call) and a third through
@@ -102,7 +128,10 @@ Phases (any failure exits non-zero and prints no result line):
    template's flank and patterns), and the Myers kernel on the
    arguments of one full batch of the ends path, the extended path and
    ``annotate``, captured as the path passed them ("captured" entries,
-   with every segment count S timed there too).
+   with every segment count S timed there too); every kernel call of the
+   first batch of ``kit_nbd`` (rows 512 wide at m = 46, two Myers words)
+   and ``kit_pcr`` (both groups: m = 59 and 60), captured as the fused
+   call made them ("kit_nbd (captured)", "kit_pcr (captured)" entries).
 
 The simulated reads and the scalar Demuxer's rows come from up to 8
 spawned worker processes; the ends and whole-read sets are simulated
@@ -145,6 +174,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import json
 import multiprocessing
 import os
@@ -170,6 +200,18 @@ N_FUSED = 256  # reads of each two-construct input of the fused check
 N_SCALAR = 64  # reads of each fused-check input held to the scalar Demuxer
 N_NBATCH = 64  # reads of the N-byte batch (every fourth body base an N)
 N_COMPARE = 200  # reads per simulated group of the compare check
+#: the kit paths beyond the rapid kit: (kit, --maximize), 16384 reads of
+#: the kit's read model (``make_reads_kit``) each
+KIT_PATHS = {"kit_nbd": ("SQK-NBD114-96", False), "kit_nbd_max": ("SQK-NBD114-96", True),
+             "kit_pcr": ("EXP-PBC096", False), "kit_pcr_max": ("EXP-PBC096", True)}
+N_KIT = 16384
+#: ``[kits]``: reads of each other registered family, and its first reads
+#: held to the oracle backend
+KITS_READS = 256
+KITS_ORACLE_READS = 64
+#: kits that run at full width elsewhere: the flagship, the kit paths'
+#: and ``compare``'s (SQK-RBK110-96)
+FULL_WIDTH_KITS = (KIT, "SQK-NBD114-96", "EXP-PBC096", "SQK-RBK110-96")
 # compare's (assigned, correct) per group on ``sim -n 200 -r 0``, which is
 # what barbell_tpu's compare on its own engine gives on the same set: the
 # kit's two-tier ends scan assigns GroupV's reads by their end constructs
@@ -1009,7 +1051,8 @@ def check_batch_kernels(engine, batches, path: str, seed: int,
 
 class BatchRecorder:
     """Records each device call's row width, row count, hit capacity,
-    group count, device and the engine's dispatch (the engine's
+    group count, device, ends windows (the tier's) and the engine's
+    dispatch (the engine's
     ``_dispatch``, which runs one group or, fused, every group of a batch
     on one shard) while installed."""
 
@@ -1027,7 +1070,8 @@ class BatchRecorder:
             batches.append({"L": batch.L, "R_total": batch.R_total,
                             "H_cap": H_cap, "groups": len(gplans),
                             "dispatch": eng.last_dispatch,
-                            "device": str(batch.parts["host_packed"].device)})
+                            "device": str(batch.parts["host_packed"].device),
+                            "ends": (eng.ends_wl, eng.ends_wr)})
             return orig(eng, gplans, batch, H_cap)
 
         self.cls._dispatch = call
@@ -1095,14 +1139,24 @@ def _simulate(n, long_every, path):
     return reads
 
 
-def _kit(fq, out, backend, full_scan=False, **config):
+def _simulate_kit(kit, n, path):
+    """``n`` reads of ``kit``'s read model (``make_reads_kit``), also
+    written to the FASTQ ``path`` (runs in a worker process too)."""
+    from barbell_tpu_torch.sim import make_reads_kit, write_fastq
+
+    reads = make_reads_kit(kit, n, SEED)
+    write_fastq(path, reads)
+    return reads
+
+
+def _kit(fq, out, backend, full_scan=False, kit=KIT, device="cuda", **config):
     from barbell_tpu_torch.stages.kit import KitRunConfig, demux_using_kit
 
     demux_using_kit(
         [fq],
-        KitRunConfig(kit_name=KIT, output_folder=out, batch_size=BATCH,
+        KitRunConfig(kit_name=kit, output_folder=out, batch_size=BATCH,
                      backend=backend, full_scan=full_scan, **config),
-        device="cuda",
+        device=device,
     )
 
 
@@ -1187,7 +1241,9 @@ def _kit_full(fq, out, backend):
 
 #: each path's run(fq, out, backend), by the path's name
 PATHS = {"kit": _kit, "kit_extended": _kit_extended, "annotate": _annotate,
-         "kit_full_scan": _kit_full}
+         "kit_full_scan": _kit_full,
+         **{name: functools.partial(_kit, kit=kit, maximize=maximize)
+            for name, (kit, maximize) in KIT_PATHS.items()}}
 
 
 def _oracle_run(name, d):
@@ -1201,6 +1257,19 @@ def _oracle_run(name, d):
         return time.perf_counter() - t0
 
 
+def _same_files(a_dir, b_dir, what, ref="the oracle backend") -> dict:
+    """The files of ``a_dir``, which must equal ``b_dir``'s (``ref``'s)
+    byte for byte."""
+    a, b = _files(a_dir), _files(b_dir)
+    if sorted(a) != sorted(b):
+        raise AssertionError(f"{what}: stage files differ from {ref}'s: {sorted(a)} "
+                             f"vs {sorted(b)}")
+    for f in a:
+        if a[f] != b[f]:
+            raise AssertionError(f"{what}: {f} differs from {ref}'s")
+    return a
+
+
 def oracle_parity(name, reads, d, oracle_job):
     """The path's files on the first ORACLE_READS reads equal the scalar
     oracle backend's byte for byte (``oracle_job``: the oracle's run on
@@ -1209,34 +1278,164 @@ def oracle_parity(name, reads, d, oracle_job):
     with _quiet(d, f"{name}_sub"):
         PATHS[name](os.path.join(d, f"{name}_sub.fastq"), a_dir, "torch")
     t_oracle = oracle_job.result()
-    a, b = _files(a_dir), _files(b_dir)
-    if sorted(a) != sorted(b):
-        raise AssertionError(f"{name}: stage files differ: {sorted(a)} vs {sorted(b)}")
-    for f in a:
-        if a[f] != b[f]:
-            raise AssertionError(f"{name}: {f} differs from the oracle backend")
+    a = _same_files(a_dir, b_dir, name)
     n_long = sum(len(s) > 8192 for _r, s, _l in reads[:ORACLE_READS])
     log(f"[{name}] oracle parity: {len(a)} files byte-identical on "
         f"{ORACLE_READS} reads ({n_long} longer than 8192 bases; oracle "
         f"{t_oracle:.1f}s in a worker process)")
 
 
-def check_extended_launches(batches, launches):
-    """The extended path's calls: every batch is one fused call of both
-    groups (``single-fused``), any other call is one group's overflow
-    retry, and each on-path kernel launched once per group per call."""
-    fused = [b for b in batches if b["groups"] == 2]
-    if not fused or any(b["dispatch"] != "single-fused" for b in fused):
-        raise AssertionError("kit_extended: a batch was not one fused call")
-    if any(b["groups"] != 1 for b in batches if b not in fused):
-        raise AssertionError("kit_extended: a retry call ran more than one group")
+def check_launches(name, batches, launches, n_groups):
+    """A path's calls: every batch is one call of the kit's ``n_groups``
+    groups (with two, one fused call: ``single-fused``), any other call
+    one group's overflow retry, and each on-path kernel launched once
+    per group per call."""
+    full = [b for b in batches if b["groups"] == n_groups]
+    if not full or (n_groups > 1 and any(b["dispatch"] != "single-fused" for b in full)):
+        raise AssertionError(f"{name}: a batch was not one fused call")
+    if any(b["groups"] != 1 for b in batches if b not in full):
+        raise AssertionError(f"{name}: a retry call ran more than one group")
     want = _launches_of(batches)
     got = {k: launches[k] for k in want}
     if got != want:
-        raise AssertionError(f"kit_extended launches {got}, want {want}")
-    log(f"[kit_extended] {len(fused)} batches, each one fused call of 2 "
-        f"groups, {len(batches) - len(fused)} retry call(s): every on-path "
-        f"kernel launched 2 x per batch plus retries ({want})")
+        raise AssertionError(f"{name} launches {got}, want {want}")
+    log(f"[{name}] {len(full)} device calls, each one "
+        f"{'fused call' if n_groups > 1 else 'call'} of {n_groups} group(s), "
+        f"{len(batches) - len(full)} retry call(s): every on-path kernel "
+        f"launched once per group per call ({want})")
+
+
+def _kits_aliases() -> list:
+    """``[kits]``: one alias (the first) of each registered family that
+    no full-width path runs."""
+    from barbell_tpu_torch.kits.database import get_kit_info, supported_kits
+
+    skip = {get_kit_info(k).name for k in FULL_WIDTH_KITS}
+    families = {}
+    for alias in supported_kits():
+        family = get_kit_info(alias).name
+        if family not in skip:
+            families.setdefault(family, alias)
+    return list(families.values())
+
+
+def _kits_reference(kit, d, route):
+    """``[kits]``: ``kit``'s first KITS_ORACLE_READS reads on a reference
+    route (in a worker process): ``"oracle"``, the scalar oracle backend
+    (a whole-read scan), or ``"cpu"``, the port's default ends scan on
+    the CPU (the kernels' plain versions, which the CPU tests hold to
+    the JAX package); returns its seconds."""
+    torch.set_num_threads(1)
+    with _quiet(d, f"kits_{kit}_sub_{route}"):
+        t0 = time.perf_counter()
+        _kit(os.path.join(d, f"kits_{kit}_sub.fastq"),
+             os.path.join(d, f"kits_{kit}_sub_{route}"),
+             "oracle" if route == "oracle" else "torch", kit=kit, device="cpu")
+        return time.perf_counter() - t0
+
+
+def submit_kits(d, pool) -> dict:
+    """``[kits]``' reads (KITS_READS of each family's ``make_reads_kit``)
+    and the reference runs of their first reads in ``pool``: {alias:
+    (reads, {route: its job})}."""
+    from barbell_tpu_torch.sim import make_reads_kit, write_fastq
+
+    jobs = {}
+    for kit in _kits_aliases():
+        reads = make_reads_kit(kit, KITS_READS, SEED)
+        write_fastq(os.path.join(d, f"kits_{kit}.fastq"), reads)
+        write_fastq(os.path.join(d, f"kits_{kit}_sub.fastq"), reads[:KITS_ORACLE_READS])
+        jobs[kit] = (reads, {route: pool.submit(_kits_reference, kit, d, route)
+                             for route in ("oracle", "cpu")})
+    return jobs
+
+
+def check_kits(jobs, d, wrappers, required, smi) -> dict:
+    """``[kits]``: each family's reads through ``demux_using_kit`` (safe
+    presets) on the card, with every launch count at 0 just before it:
+    every device call at the plan's windows (a deep tier's at least in
+    its warm-up, ``warm_deep``), each kernel of
+    ``required`` launched, each on-path kernel once per group per call.
+    On its first KITS_ORACLE_READS reads the card's stage files are
+    byte-identical to two references: the default ends scan to the same
+    scan on the CPU route (the plain versions), and ``--full-scan`` to
+    the oracle backend.  (The ends scan leaves out hits in a long read's
+    unscanned middle, which the oracle's whole-read scan reports:
+    ``docs/SEMANTICS.md`` deviation 7, which the JAX package shares,
+    ``tests/test_torch_kits.py`` pins it on an SQK-MAB114-24 read.)
+    Logs a line a family (plan, shapes, launches, accuracy against the
+    simulated truth, not gated).  Returns the launches summed over the
+    families."""
+    from barbell_tpu_torch.kits.database import get_kit_info
+    from barbell_tpu_torch.models.groups import GroupPlan
+    from barbell_tpu_torch.stages.kit import kit_groups, kit_plan
+
+    total = {w.__name__: 0 for w in wrappers}
+    for kit, (reads, refs) in jobs.items():
+        for w in wrappers:
+            w.launches = 0
+        torch.cuda.synchronize()
+        with BatchRecorder() as rec, _quiet(d, f"kits_{kit}"):
+            t0 = time.perf_counter()
+            _kit(os.path.join(d, f"kits_{kit}.fastq"), os.path.join(d, f"kits_{kit}"),
+                 "torch", kit=kit)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        launches = {w.__name__: w.launches for w in wrappers}
+        what = f"[kits] {kit}"
+        _require(launches, required, what)
+        want = _launches_of(rec.batches)
+        if {k: launches[k] for k in want} != want:
+            raise AssertionError(f"{what}: launches {launches}, want {want}")
+        plan = kit_plan(kit)
+        tiers = {b["ends"] for b in rec.batches}
+        if not tiers <= {tuple(plan.shallow)} | ({tuple(plan.deep)} if plan.deep else set()):
+            raise AssertionError(f"{what}: calls at ends windows {sorted(tiers)}, plan {plan}")
+        for name, n in launches.items():
+            total[name] += n
+        assigned, correct = _accuracy(reads, os.path.join(d, f"kits_{kit}", "annotation.tsv"))
+        sub = os.path.join(d, f"kits_{kit}_sub.fastq")
+        a_dir = os.path.join(d, f"kits_{kit}_sub_torch")
+        f_dir = os.path.join(d, f"kits_{kit}_sub_full")
+        with _quiet(d, f"kits_{kit}_sub"):
+            _kit(sub, a_dir, "torch", kit=kit)
+            _kit(sub, f_dir, "torch", full_scan=True, kit=kit)
+        t_ref = {route: job.result() for route, job in refs.items()}
+        files = _same_files(a_dir, os.path.join(d, f"kits_{kit}_sub_cpu"), what,
+                            "the CPU route")
+        full = _same_files(f_dir, os.path.join(d, f"kits_{kit}_sub_oracle"),
+                           f"{what} --full-scan")
+        spec = get_kit_info(kit)
+        shapes = [(gp.m, gp.k_units, gp.plen, gp.barcode_window, gp.n_patterns)
+                  for gp in (GroupPlan(g, "cpu") for g in kit_groups(kit))]
+        calls = sorted({(b["L"], b["R_total"], b["H_cap"], b["groups"], b["ends"])
+                        for b in rec.batches})
+        log(f"{what} ({spec.name}, {spec.pattern_class} presets): plan {plan}; groups "
+            f"(m, k, plen, Wb, P) {shapes}; calls (L, R_total, H_cap, groups, ends) "
+            f"{calls}; launches {{{', '.join(f'{k}: {v}' for k, v in launches.items() if v)}}}; "
+            f"{len(reads)} reads in {dt:.2f}s, assigned {assigned:.4f}, "
+            f"correct-of-assigned {correct:.4f} (not gated); on {KITS_ORACLE_READS} "
+            f"reads {len(files)} files byte-identical to the CPU route's "
+            f"({t_ref['cpu']:.1f}s) and, --full-scan, {len(full)} to the oracle "
+            f"backend's ({t_ref['oracle']:.1f}s, in worker processes); {smi}")
+    return total
+
+
+def check_kit_path(name, plan, batches) -> None:
+    """A kit path ran its plan's tiers and no other: every device call
+    at the shallow windows or, with a deep tier, the deep ones (its
+    warm-up, ``warm_deep``, at least)."""
+    tiers = {b["ends"] for b in batches}
+    want = {tuple(plan.shallow)} | ({tuple(plan.deep)} if plan.deep else set())
+    if tiers != want:
+        raise AssertionError(f"[{name}] device calls at ends windows {sorted(tiers)}, "
+                             f"want the plan's {sorted(want)}")
+    deep = sum(b["ends"] == tuple(plan.deep) for b in batches) if plan.deep else 0
+    log(f"[{name}] plan {plan}: {len(batches) - deep} shallow-tier calls "
+        f"{sorted({(b['L'], b['R_total'], b['H_cap']) for b in batches if b['ends'] == tuple(plan.shallow)})} "
+        f"(L, R_total, H_cap), {deep} deep-tier call(s)"
+        + (f" {sorted({(b['L'], b['R_total'], b['H_cap']) for b in batches if b['ends'] == tuple(plan.deep)})}"
+           if deep else " (no deep tier)"))
 
 
 class CallSpy:
@@ -1652,6 +1851,141 @@ def check_mesh(ends_reads, whole_reads, wrappers, smi) -> None:
                 f"(a correctness run, not a multi-card speed; {smi})")
 
 
+def _engine_calls(eng, batch):
+    """(table, [(group plans, the shard's uploaded batch, H_cap, its
+    output buffer)]) of ``eng``'s device calls on ``batch``, run
+    eagerly (``cuda_graphs`` off)."""
+    calls = []
+    orig = type(eng)._dispatch
+
+    def dispatch(gplans, b, H_cap):
+        launched = orig(eng, gplans, b, H_cap)
+        calls.append((gplans, b, H_cap, launched.out.clone()))
+        return launched
+
+    eng.cuda_graphs = False
+    eng._dispatch = dispatch
+    try:
+        table = eng.demux_batch_table(*batch)
+        torch.cuda.synchronize()
+    finally:
+        del eng._dispatch  # the class's again, and no engine -> engine cycle
+    return table, calls
+
+
+def _demux_statics(eng, gplan, b, H_cap):
+    """(group statics, call statics) of one engine call as the JAX
+    package's ``demux_call`` names them."""
+    from barbell_tpu_torch import PADDING
+
+    gi, gf = eng._group_scalars(gplan, b.step)
+    group = dict(gi=gi, gf=gf, m=gplan.m, k_units=gplan.k_units,
+                 W_words=gplan.patw.shape[1], top_bit=(gplan.m - 1) % 32,
+                 Wf=gplan.span, plen=gplan.plen, Wb=gplan.barcode_window,
+                 P=gplan.n_patterns)
+    call = dict(K=eng.K, H_cap=H_cap, padding=PADDING, pack_mode=b.pack_mode,
+                L_rows=b.L, ends_w=eng.ends_wl, ends_wr=eng.ends_wr, halo=eng.halo,
+                cat_align=eng.cat_align, S_pad=b.S_pad,
+                meta_mode="desc" if "rowdesc" in b.parts else "wire",
+                use_pallas=True, interpret=False)
+    return group, call
+
+
+#: the reads mesh the public demux steps run on
+MESH_STEP_DEVICES = ["cuda:0"] * 2
+
+
+def check_mesh_steps(ends_reads, pcr_reads, wrappers, smi) -> dict:
+    """The mesh's public demux steps on ``["cuda:0"] * 2`` against the
+    two-shard engine's own device calls on one batch: ``sharded_demux_step``
+    on the flagship ends batch uploaded an array at a time (uploaded
+    metadata), ``sharded_demux_step_mono`` on its blob (descriptor
+    metadata), ``sharded_demux_step_fused`` on the EXP-PBC096 batch's
+    blob (two groups).  The engine's tables equal the one-device
+    engine's (as ``[mesh]`` holds); each step's per-shard buffers equal
+    the engine's byte for byte and its hit sum theirs, on a first call
+    (captures) and a replay, which makes no ``cudaLaunchKernel`` and one
+    ``cudaGraphLaunch`` a shard, plus one for the shards' hit sum.
+    Returns the kernels' launches in the steps' calls."""
+    from barbell_tpu_torch.models import graphs
+    from barbell_tpu_torch.models.pipeline import TorchDemuxEngine, _over_words
+    from barbell_tpu_torch.parallel import mesh
+    from barbell_tpu_torch.stages.kit import kit_groups
+
+    devices = MESH_STEP_DEVICES
+    launches = {w.__name__: 0 for w in wrappers}
+    cases = (
+        ("sharded_demux_step", kit_groups(KIT), dict(ends_window=(512, 512), mono_upload=False),
+         ends_reads),
+        ("sharded_demux_step_mono", kit_groups(KIT), dict(ends_window=(512, 512)), ends_reads),
+        ("sharded_demux_step_fused", kit_groups("EXP-PBC096"), dict(ends_window=(512, 512)),
+         pcr_reads),
+    )
+    for name, groups, kw, reads in cases:
+        batch = ([r for r, _s, _l in reads[:BATCH]], [s for _r, s, _l in reads[:BATCH]])
+        one = TorchDemuxEngine(groups, devices=["cuda:0"], **kw).demux_batch_table(*batch)
+        eng = TorchDemuxEngine(groups, devices=devices, **kw)
+        table, calls = _engine_calls(eng, batch)
+        _tables_equal(table, one, f"[mesh] {name}")
+        calls = [c for c in calls if len(c[0]) == len(groups)][: len(devices)]
+        gplans, b0, H_cap = calls[0][:3]
+        stat = [_demux_statics(eng, g, b0, H_cap) for g in gplans]
+        tensors = [(g.tensors.flank, g.tensors.patw, g.tensors.patterns_all) for g in gplans]
+        if name == "sharded_demux_step":
+            step = mesh.sharded_demux_step(devices, **stat[0][0], **stat[0][1])
+            arrays = [[c[1].parts[n] for c in calls]
+                      for n in ("host_packed", "simple_idx", "meta", "exc", "row_start")]
+            run = lambda: step(*tensors[0], *arrays)  # noqa: E731
+        elif name == "sharded_demux_step_mono":
+            step = mesh.sharded_demux_step_mono(devices, spans=b0.spans, **stat[0][0],
+                                                **stat[0][1])
+            run = lambda: step(*tensors[0], [c[1].blob for c in calls])  # noqa: E731
+        else:
+            step = mesh.sharded_demux_step_fused(
+                devices, spans=b0.spans, group_statics=tuple(
+                    tuple(sorted(g.items())) for g, _c in stat),
+                common=tuple(sorted(stat[0][1].items())))
+            run = lambda: step(tensors, [c[1].blob for c in calls])  # noqa: E731
+        want_total = 0
+        for gp_, b, cap, out in calls:
+            off = 0
+            for g in gp_:
+                off += cap * eng._rec_wire(g, b.L, b.R_total)[0] + _over_words(b.R_total) + 1
+                want_total += int(out[off - 1])
+            if off != out.numel():
+                raise AssertionError(f"[mesh] {name}: buffer of {out.numel()} words, "
+                                     f"groups' layouts {off}")
+        before = {w.__name__: w.launches for w in wrappers}
+        replays = graphs.COMPILED.replays
+        results = [run()]
+        torch.cuda.synchronize()
+        for w in wrappers:
+            launches[w.__name__] += w.launches - before[w.__name__]
+        out2, rt = _runtime_of(run)
+        results.append(out2)
+        n_replays = graphs.COMPILED.replays - replays
+        if (rt.get("cudaLaunchKernel", 0), rt.get("cudaGraphLaunch", 0)) != (0, len(devices) + 1):
+            raise AssertionError(f"[mesh] {name}: the replay made {rt}")
+        for i, (outs, total) in enumerate(results):
+            for d, (o, c) in enumerate(zip(outs, calls)):
+                if o.dtype != c[3].dtype or not torch.equal(o, c[3]):
+                    raise AssertionError(f"[mesh] {name}: call {i + 1}, shard {d}: buffer "
+                                         f"differs from the engine's")
+            if int(total) != want_total:
+                raise AssertionError(f"[mesh] {name}: call {i + 1}: hit sum {int(total)}, "
+                                     f"the engine's {want_total}")
+        log(f"[mesh] {name} on {devices}: {len(groups)} group(s), {len(calls)} shards of "
+            f"[L {b0.L}, R_total {b0.R_total}, H_cap {H_cap}], "
+            f"{'blob' if b0.blob is not None else 'separate arrays'} "
+            f"({stat[0][1]['meta_mode']} metadata); the engine's table = the one-device "
+            f"engine's ({table.n_rows} rows); the step's shard buffers = the engine's calls' "
+            f"byte for byte, hit sum {want_total}, on a capture and a replay; replay "
+            f"{rt.get('cudaGraphLaunch', 0)} cudaGraphLaunch (a shard, and the sum), "
+            f"{rt.get('cudaLaunchKernel', 0)} cudaLaunchKernel, {n_replays} compiled "
+            f"replays; {smi}")
+    return launches
+
+
 def check_shard(fq, d, smi) -> None:
     """``annotate --kit KIT --shard-rank r --shard-world 2`` as two
     processes at once on the one card over the whole-read set; their
@@ -1999,13 +2333,17 @@ def _profiled_pass(eng, batches) -> dict:
             "calls": len(rec.batches), "caps": [b["H_cap"] for b in rec.batches]}
 
 
-def check_graphs(ends_reads, whole_reads, smi) -> None:
+def check_graphs(ends_reads, whole_reads, smi, kit_reads=None) -> None:
     """CUDA graphs against the eager call on the first N_GRAPH_BATCHES
-    batches of the ends, extended and whole-read paths, and on the ends
+    batches of the ends, extended and whole-read paths, or, given
+    ``kit_reads`` (each kit's reads), of the four kit paths, and on the ends
     path's first batch with its hit capacity forced to BATCH / 8 = 256
     (the call overflows, and its retry runs at a capacity of its own, a
-    key of its own): every fetched device-call buffer byte-equal and every table
-    equal, on a first pass (which captures), a second (which captures
+    key of its own): every fetched device-call buffer byte-equal (to the
+    eager engine's first pass on the first pass, to a later eager pass
+    on the later ones: an overflow raises both engines' sticky hit
+    capacity, so the NBD kit's batches retry only on a first pass) and
+    every table equal, on a first pass (which captures), a second (which captures
     nothing and replays one graph a shard a device call,
     ``cudaGraphLaunch`` counted in a profiler trace) and a third through
     the pipeline's worker threads; the second pass's dispatch s, wall
@@ -2014,11 +2352,20 @@ def check_graphs(ends_reads, whole_reads, smi) -> None:
     import gc
 
     from barbell_tpu_torch.models import pipeline
+    from barbell_tpu_torch.models.twotier import make_ends_engine
+    from barbell_tpu_torch.stages.kit import kit_groups, kit_plan
 
-    reads_of = {"ends": ends_reads, "extended": ends_reads, "whole-read": whole_reads}
-    cases = [(name, make, reads_of[name], N_GRAPH_BATCHES, False)
-             for name, make, _b in _first_batches(ends_reads, whole_reads)]
-    cases.append(("ends, forced retry", cases[0][1], ends_reads, 1, True))
+    if kit_reads is None:
+        reads_of = {"ends": ends_reads, "extended": ends_reads, "whole-read": whole_reads}
+        cases = [(name, make, reads_of[name], N_GRAPH_BATCHES, False)
+                 for name, make, _b in _first_batches(ends_reads, whole_reads)]
+        cases.append(("ends, forced retry", cases[0][1], ends_reads, 1, True))
+    else:
+        cases = [(name, functools.partial(
+                      lambda kit, maximize, **kw: make_ends_engine(
+                          kit_groups(kit), kit_plan(kit, maximize), device="cuda", **kw),
+                      kit, maximize), kit_reads[kit], N_GRAPH_BATCHES, False)
+                 for name, (kit, maximize) in KIT_PATHS.items()]
     for name, make, reads, n, force in cases:
         batches = [([r for r, _s, _l in reads[i : i + BATCH]],
                     [s for _r, s, _l in reads[i : i + BATCH]])
@@ -2051,6 +2398,9 @@ def check_graphs(ends_reads, whole_reads, smi) -> None:
         torch.cuda.empty_cache()
         one_mib = (torch.cuda.memory_reserved() - base) / 2**20
         eager_stats = _profiled_pass(eager, batches)
+        # an overflow's retry raises an engine's sticky hit capacity, so
+        # its later passes start there: they are held to a later eager pass
+        want_next, _tables = _recorded_pass(eager, batches)
         graph_stats = _profiled_pass(eng, batches)
         c2 = caps()
         passes.append(_recorded_pass(eng, batches))
@@ -2060,7 +2410,7 @@ def check_graphs(ends_reads, whole_reads, smi) -> None:
         torch.cuda.empty_cache()
         full_mib = (torch.cuda.memory_reserved() - base) / 2**20
         for i, (got, tables) in enumerate(passes):
-            for b, (g, w) in enumerate(zip(got, want)):
+            for b, (g, w) in enumerate(zip(got, want if i == 0 else want_next)):
                 if len(g) != len(w) or any(
                         x.dtype != y.dtype or not np.array_equal(x, y) for x, y in zip(g, w)):
                     raise AssertionError(f"[graphs] {name}: pass {i + 1}, batch {b}: "
@@ -2270,8 +2620,10 @@ def _h2d_copies(fn, tries: int = 3) -> tuple:
     copies torch issued with ``copy_`` and the ``DtoD`` events the card
     ran (the latter include copies inside a replayed graph).  A trace
     that holds no kernel and no device copy of the batch has lost its
-    device records (CUPTI drops a session's records now and then): the
-    run is made again, up to ``tries`` runs, and then the check fails.
+    device records (CUPTI drops a session's records now and then), and
+    so has one that holds no copy of a kind (``HtoD``, ``DtoD``) that
+    torch issued: the run is made again, up to ``tries`` runs, and then
+    the check fails.
     Returns (issued, ran, kernels traced, DtoD issued, DtoD ran)."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -2289,10 +2641,18 @@ def _h2d_copies(fn, tries: int = 3) -> tuple:
         kernels = sum(1 for e in events if e.get("cat") == "kernel")
         copies = [e.get("name", "") for e in events if e.get("cat") == "gpu_memcpy"]
         d2d = sum("DtoD" in c for c in copies)
-        if kernels or d2d:
-            ran = sum("HtoD" in c for c in copies)
+        ran = sum("HtoD" in c for c in copies)
+        if (kernels or d2d) and (ran or not issued.n) and (d2d or not issued.d2d):
             return issued.n, ran, kernels, issued.d2d, d2d
-    raise AssertionError(f"the profiler kept no kernel or copy of the batch in {tries} runs")
+    seen = {}
+    for e in events:
+        if e.get("cat") != "kernel" and ("emcpy" in e.get("name", "")
+                                         or e.get("cat", "").startswith("gpu")):
+            k = (e.get("cat"), e.get("name"))
+            seen[k] = seen.get(k, 0) + 1
+    raise AssertionError(f"the profiler lost the batch's kernels or copies in {tries} "
+                         f"runs: issued {issued.n} HtoD, {issued.d2d} DtoD; the last "
+                         f"trace held {kernels} kernels and {seen}")
 
 
 def check_upload(ends_reads, whole_reads, wrappers, smi) -> dict:
@@ -2380,32 +2740,58 @@ def check_fine_rows(ends_reads, whole_reads, wrappers, smi, engine) -> tuple:
             f"{sum(res[False][3].values()):.4f}, fine {{{fmt(res[True][3])}}} = "
             f"{sum(res[True][3].values()):.4f} ({smi})")
         if name == "whole-read":
-            kc = KernelCheck(engine, "fine-rows whole-read", SEED + 6)
-            for kname, args in res[True][2]:
-                src, rep = KERNEL_SITES[kname]
-                if kname == "myers_topk":
-                    ptx = (f"myers_kernelILi{args[0].shape[1]}ELb1EE",)
-                    shape = f"rows [{args[2].shape[0]}, {args[2].shape[1]}], m = {args[1]}"
-                elif kname.startswith("rank"):
-                    from barbell_tpu_torch.ops import rank
-
-                    H, W = args[1].shape
-                    ptx = _rank_ptxas(rank, args[0].shape[1], W + W % 2)
-                    shape = f"[{H} lanes, {W}] x {args[0].shape[0]} patterns"
-                else:
-                    from barbell_tpu_torch.ops import window
-
-                    mode = {"window_valleys": window.MODE_VALLEY,
-                            "window_trace": window.MODE_TRACE}.get(kname, window.MODE_INTERVAL)
-                    H, W = args[1].shape
-                    ptx = _window_ptxas(window, mode, args[0].shape[-1], W)
-                    shape = f"[{H} lanes, {W}], m = {args[0].shape[-1]}"
-                fn = _wrapper(kname)
-                kc.record(kname, src, rep, shape + " (captured, fine rows)",
-                          lambda fn=fn, a=args: fn(*a), lambda n=kname, a=args: _plain_of(n, a),
-                          _captured_bound(kname, args), ptx, reps=5)
-            entries += kc.entries
+            entries += _captured_entries(engine, "fine-rows whole-read", SEED + 6,
+                                         res[True][2], "captured, fine rows")
     return launches, entries
+
+
+def _captured_entries(engine, path, seed, calls, what="captured") -> list:
+    """Each captured kernel call (:class:`KernelCalls`) against its plain
+    version on its own card tensors, timed (CUDA-graph replay) and
+    bounded from its inputs: one kernel entry a call."""
+    from barbell_tpu_torch.ops import rank, window
+
+    kc = KernelCheck(engine, path, seed)
+    for kname, args in calls:
+        src, rep = KERNEL_SITES[kname]
+        if kname == "myers_topk":
+            ptx = (f"myers_kernelILi{args[0].shape[1]}ELb1EE",)
+            shape = (f"rows [{args[2].shape[0]}, {args[2].shape[1]}], m = {args[1]}, "
+                     f"{args[0].shape[1]} words")
+        elif kname.startswith("rank"):
+            H, W = args[1].shape
+            ptx = _rank_ptxas(rank, args[0].shape[1], W + W % 2)
+            shape = (f"[{H} lanes, {W}] x {args[0].shape[0]} patterns, "
+                     f"m = {args[0].shape[1]}")
+        else:
+            mode = {"window_valleys": window.MODE_VALLEY,
+                    "window_trace": window.MODE_TRACE}.get(kname, window.MODE_INTERVAL)
+            H, W = args[1].shape
+            ptx = _window_ptxas(window, mode, args[0].shape[-1], W)
+            shape = f"[{H} lanes, {W}], m = {args[0].shape[-1]}"
+        fn = _wrapper(kname)
+        kc.record(kname, src, rep, f"{shape} ({what})",
+                  lambda fn=fn, a=args: fn(*a), lambda n=kname, a=args: _plain_of(n, a),
+                  _captured_bound(kname, args), ptx, reps=5)
+    return kc.entries
+
+
+def check_kit_kernels(engine, kit, reads, path) -> list:
+    """Every kernel call of the first batch of ``kit``'s ends path
+    (safe plan, eager), captured as the fused call made it, against its
+    plain version on the card, timed and bounded (``path (captured)``
+    entries): the Myers, window and rank instances of that kit's flank
+    and barcode shapes."""
+    from barbell_tpu_torch.models.twotier import make_ends_engine
+    from barbell_tpu_torch.stages.kit import kit_groups, kit_plan
+
+    eng = make_ends_engine(kit_groups(kit), kit_plan(kit), device="cuda")
+    eng.cuda_graphs = False
+    with KernelCalls() as cap:
+        eng.demux_batch_table([r for r, _s, _l in reads[:BATCH]],
+                              [s for _r, s, _l in reads[:BATCH]])
+        torch.cuda.synchronize()
+    return _captured_entries(engine, f"{path} (captured)", SEED + 7, cap.calls)
 
 
 def check_pack1(ends_reads, whole_reads, wrappers) -> dict:
@@ -2753,7 +3139,8 @@ def main() -> int:
     t_start = time.perf_counter()
     smi = probe()
     from barbell_tpu_torch.ops import myers, rank, window
-    from barbell_tpu_torch.sim import make_reads_rbk, write_fastq
+    from barbell_tpu_torch.sim import make_reads_kit, make_reads_rbk, write_fastq
+    from barbell_tpu_torch.stages.kit import kit_groups, kit_plan
 
     t0 = time.perf_counter()
     engine = _flagship_engine()
@@ -2790,25 +3177,34 @@ def main() -> int:
         # worker processes alongside the simulation (the first reads of
         # a set do not depend on its size)
         t0 = time.perf_counter()
+        kits = sorted({kit for kit, _maximize in KIT_PATHS.values()})
         sub_reads = {"ends": make_reads_rbk(ORACLE_READS, SEED),
                      "whole": make_reads_rbk(ORACLE_READS, SEED,
-                                             long_every=LONG_EVERY)}
+                                             long_every=LONG_EVERY),
+                     **{kit: make_reads_kit(kit, ORACLE_READS, SEED) for kit in kits}}
+        set_of = {"kit": "ends", "kit_extended": "ends", "annotate": "whole",
+                  "kit_full_scan": "whole",
+                  **{name: kit for name, (kit, _m) in KIT_PATHS.items()}}
         oracle_jobs = {}
         for name in PATHS:
-            key = "ends" if name in ("kit", "kit_extended") else "whole"
-            write_fastq(os.path.join(d, f"{name}_sub.fastq"), sub_reads[key])
+            write_fastq(os.path.join(d, f"{name}_sub.fastq"), sub_reads[set_of[name]])
             oracle_jobs[name] = pool.submit(_oracle_run, name, d)
         fq_ends = os.path.join(d, "ends.fastq")
         fq_whole = os.path.join(d, "whole.fastq")
+        fq_kit = {kit: os.path.join(d, f"{kit}.fastq") for kit in kits}
         ends_job = pool.submit(_simulate, N_ENDS, 0, fq_ends)
+        kit_jobs = {kit: pool.submit(_simulate_kit, kit, N_KIT, fq_kit[kit]) for kit in kits}
+        kits_jobs = submit_kits(d, pool)
         whole_reads = _simulate(N_WHOLE, LONG_EVERY, fq_whole)
         ends_reads = ends_job.result()
-        for key, reads in (("ends", ends_reads), ("whole", whole_reads)):
+        kit_reads = {kit: job.result() for kit, job in kit_jobs.items()}
+        for key, reads in (("ends", ends_reads), ("whole", whole_reads), *kit_reads.items()):
             if reads[:ORACLE_READS] != sub_reads[key]:
                 raise AssertionError(f"the {key} set's first reads differ")
         n_long = sum(len(s) > 8192 for _r, s, _l in whole_reads)
-        log(f"simulated {len(ends_reads)} + {len(whole_reads)} reads "
-            f"({n_long} longer than 8192 bases) in "
+        log(f"simulated {len(ends_reads)} + {len(whole_reads)} + "
+            f"{' + '.join(str(len(r)) for r in kit_reads.values())} reads "
+            f"({n_long} longer than 8192 bases; {', '.join(kits)}) in "
             f"{time.perf_counter() - t0:.1f}s")
 
         with timed("kit path"):
@@ -2819,7 +3215,7 @@ def main() -> int:
             by_path["kit_extended"], ext_batches, captured["extended (captured)"] = \
                 run_path("kit_extended", fq_ends, d, ends_reads, wrappers,
                          on_path, smi)
-            check_extended_launches(ext_batches, by_path["kit_extended"])
+            check_launches("kit_extended", ext_batches, by_path["kit_extended"], 2)
             oracle_parity("kit_extended", ends_reads, d, oracle_jobs["kit_extended"])
             check_misassigned(ends_reads, d)
         with timed("fused"):
@@ -2868,12 +3264,34 @@ def main() -> int:
         with timed("stage_ops"):
             by_path["stage_ops"] = check_stage_ops(ends_reads, wrappers, smi)
             _require(by_path["stage_ops"], on_path[:4] + ["rank_pass1"], "[stage_ops]")
+        # the phases of the kits beyond the rapid kit come last: run
+        # before [upload], they left its profiler traces without their
+        # host-to-device copy records
+        for name, (kit, maximize) in KIT_PATHS.items():
+            with timed(f"{name} path"):
+                by_path[name], batches, _args = run_path(
+                    name, fq_kit[kit], d, kit_reads[kit], wrappers, on_path, smi)
+                check_launches(name, batches, by_path[name], len(kit_groups(kit)))
+                check_kit_path(name, kit_plan(kit, maximize), batches)
+                oracle_parity(name, kit_reads[kit], d, oracle_jobs[name])
+        with timed("kits"):
+            by_path["kits"] = check_kits(kits_jobs, d, wrappers, on_path, smi)
+        with timed("mesh steps"):
+            by_path["mesh steps"] = check_mesh_steps(ends_reads, kit_reads["EXP-PBC096"],
+                                                     wrappers, smi)
+            _require(by_path["mesh steps"], on_path, "[mesh] steps")
+        with timed("graphs (kit paths)"):
+            check_graphs(ends_reads, whole_reads, smi, kit_reads)
 
     with timed("whole-read kernels"):
         kernels += check_batch_kernels(engine, whole_batches, "whole-read", SEED + 2)
     with timed("extended kernels"):
         kernels += check_batch_kernels(engine, ext_batches, "extended", SEED + 3,
                                        gp=_extended_engine().plans[1])
+    with timed("kit kernels"):
+        for name in ("kit_nbd", "kit_pcr"):
+            kit = KIT_PATHS[name][0]
+            kernels += check_kit_kernels(engine, kit, kit_reads[kit], name)
     with timed("captured Myers"):
         for path, args in captured.items():
             R, L = args[2].shape
@@ -2883,7 +3301,9 @@ def main() -> int:
             kernels += kc.entries
     path_runs = {"ends": ("kit",), "whole-read": ("annotate", "kit_full_scan"),
                  "extended": ("kit_extended",),
-                 "fine-rows whole-read": ("fine_rows (whole-read)",)}
+                 "fine-rows whole-read": ("fine_rows (whole-read)",),
+                 "kit_nbd": ("kit_nbd", "kit_nbd_max"),
+                 "kit_pcr": ("kit_pcr", "kit_pcr_max")}
     for entry in kernels:
         n = entry["name"]
         entry["launches_by_path"] = {p: c[n] for p, c in by_path.items()}
