@@ -8,7 +8,10 @@ defaults follow barbell_tpu's CLI.  ``annotate --shard-rank r
 --shard-world w`` writes rank r's record stripe to
 ``<output>.shard-r<ext>`` (merged by
 :func:`~barbell_tpu_torch.parallel.distributed.merge_annotation_shards`).
-``BARBELL_DEBUG=1`` re-raises the errors that otherwise exit 1.
+``BARBELL_DEBUG=1`` re-raises the errors that otherwise exit 1;
+``BARBELL_TIMING=1`` prints the run's spans and counters
+(:func:`~barbell_tpu_torch.timing.timing_report`) to stderr at the end
+of ``annotate`` and ``kit``.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import os
 import sys
 from typing import List, Optional
 
+from . import timing
 from .models.records import BarcodeType
 from .parallel.distributed import shard_output_path
 from .sim.ingest import IMPORT_TOOLS
@@ -197,6 +201,13 @@ def main(argv: Optional[List[str]] = None) -> int:
         return 1
 
 
+def _print_timing_report(command: str) -> None:
+    """``BARBELL_TIMING=1``: the run's spans and counters on stderr."""
+    if timing.ENABLED:
+        print(f"BARBELL_TIMING: {command} spans (wall, calls, thread CPU) "
+              f"and counters\n{timing.timing_report()}", file=sys.stderr)
+
+
 def _dispatch(args) -> int:
     if args.command == "annotate":
         print("Starting annotation...")
@@ -237,6 +248,7 @@ def _dispatch(args) -> int:
                 return 1
             annotate_with_files(args.input, args.queries, types, output,
                                 config, DEVICE)
+        _print_timing_report("annotate")
         print("Annotation complete!")
 
     elif args.command == "filter":
@@ -295,6 +307,7 @@ def _dispatch(args) -> int:
             full_scan=args.full_scan,
         )
         demux_using_kit(args.input, config, device=DEVICE)
+        _print_timing_report("kit")
 
     elif args.command == "kits":
         from .kits.database import get_kit_info, supported_kits

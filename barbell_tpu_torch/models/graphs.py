@@ -37,7 +37,11 @@ static output and memory pool:
   ``jit``'s cache evicts.
 
 A capture or replay that fails raises: nothing falls back to the eager
-call.  Launch counts stay counts of kernels that ran: the eager first
+call.  Under ``BARBELL_TIMING=1`` a capture (its eager call and the
+capture) is the span ``graph.capture`` and each replay adds one to the
+counter ``graph.replay`` (:mod:`~barbell_tpu_torch.timing`), across
+every cache; :attr:`GraphCache.captures` / ``.replays`` count one
+cache's.  Launch counts stay counts of kernels that ran: the eager first
 use counts as it runs, a capture notes its launches
 (:func:`~barbell_tpu_torch._build.recording_launches`) and each replay
 counts them.
@@ -65,7 +69,7 @@ from typing import Any, Callable, Dict, Hashable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .. import _build
+from .. import _build, timing
 
 #: keys the cache holds before it drops the least recently used
 MAX_KEYS = 16
@@ -220,6 +224,7 @@ class GraphCache:
                 self._drop(entry)
                 raise
             _build.count_replay(inst.launches)
+            timing.count("graph.replay")
             with self._cond:
                 self.replays += 1
             return inst.output, inst
@@ -227,9 +232,10 @@ class GraphCache:
             device = next(iter(inputs.values())).device
             inst = Instance(key, entry.serial, {n: torch.empty_like(t).copy_(t)
                                                 for n, t in inputs.items()})
-            out = fn(inst.inputs)
-            with _build.recording_launches() as launches:
-                inst.graph, inst.output = self._capture(fn, inst.inputs, device)
+            with timing.span("graph.capture"):
+                out = fn(inst.inputs)
+                with _build.recording_launches() as launches:
+                    inst.graph, inst.output = self._capture(fn, inst.inputs, device)
             inst.launches = launches
         except BaseException:
             self._drop(entry, captured=True)

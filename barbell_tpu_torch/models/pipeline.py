@@ -51,19 +51,24 @@ upload copied into the graph's static inputs first
 (:mod:`~barbell_tpu_torch.models.graphs`; ``cuda_graphs = False``, and
 the CPU, run the call eagerly).
 
-``BARBELL_TIMING=1`` accumulates each phase's wall time into
-:data:`TIMINGS` (:func:`timing_report`): ``encode``, ``pack_upload``,
-``demux_call.dispatch`` (enqueue of the fused call), ``demux_call.fetch``
-(the synchronous copy back) and ``assemble.host``.
+``BARBELL_TIMING=1`` records each phase's wall, count and thread CPU
+into :data:`TIMINGS` (:mod:`~barbell_tpu_torch.timing`,
+:func:`timing_report`): ``encode``, ``pack_upload`` and within it
+``upload.copy`` (the host-to-device copies alone),
+``demux_call.dispatch`` (enqueue of the fused call),
+``demux_call.fetch`` (the synchronous copy back), ``demux_call.retry``
+(an overflow retry's dispatch and fetch) and ``assemble.host``; the
+counter ``fallback.batches`` (batches sent whole to the scalar
+fallback); and ``engine.inflight``, the seconds in which some call was
+between the start of its upload and the end of its last fetch.
+:func:`engine_map_batches` adds ``runner.result_wait``, the consuming
+thread's waits for the next batch.
 """
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import os
-import threading
-import time
 from collections import Counter, deque
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
@@ -72,7 +77,7 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .. import PADDING, _build
+from .. import PADDING, _build, timing
 from ..native import get_lib
 from ..ops import composite as comp
 from ..ops import oracle
@@ -91,38 +96,12 @@ MAX_HITS_PER_ROW = 16  # K for valley compaction
 _EXC_CAP = 4096  # non-ACGT bytes per batch the 2-bit encoding carries
 _CAT_BUCKET = 128 * 1024  # concatenated-code buffer size floor
 
-# Phase timing (BARBELL_TIMING=1): wall time per pipeline phase into
-# TIMINGS {name: [seconds, calls]}.  The fetch is synchronous, so
-# demux_call.fetch holds the device time the enqueue did not cover.
-TIMINGS: Dict[str, List[float]] = {}
-_TIMING = os.environ.get("BARBELL_TIMING", "") not in ("", "0")
-_TIMING_LOCK = threading.Lock()
-
-
-@contextlib.contextmanager
-def _phase(name: str):
-    if not _TIMING:
-        yield
-        return
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        dt = time.perf_counter() - t0
-        # engine_map_batches runs batches on several worker threads: an
-        # unlocked += would lose updates of the busiest phases
-        with _TIMING_LOCK:
-            acc = TIMINGS.setdefault(name, [0.0, 0])
-            acc[0] += dt
-            acc[1] += 1
-
-
-def timing_report() -> str:
-    lines = [
-        f"  {name:24s} {acc[0]:8.3f}s  n={acc[1]}"
-        for name, acc in sorted(TIMINGS.items())
-    ]
-    return "\n".join(lines)
+# Phase timing (BARBELL_TIMING=1): the port's span recorder
+# (barbell_tpu_torch.timing); TIMINGS is its dict.  The fetch is
+# synchronous, so demux_call.fetch holds the device time the enqueue did
+# not cover.
+TIMINGS = timing.TIMINGS
+timing_report = timing.timing_report
 
 
 #: batches in flight in engine_map_batches
@@ -142,14 +121,22 @@ def engine_map_batches(engine, batches, depth: Optional[int] = None,
     fn = getattr(engine, method)
     with ThreadPoolExecutor(max_workers=depth) as pool:
         inflight = deque()
-        for ids, seqs in batches:
-            inflight.append((ids, seqs, pool.submit(fn, ids, seqs)))
+        for serial, (ids, seqs) in enumerate(batches):
+            inflight.append((ids, seqs, serial,
+                             pool.submit(timing.tagged(fn, serial), ids, seqs)))
             while len(inflight) > depth:
-                bids, bseqs, fut = inflight.popleft()
-                yield bids, bseqs, fut.result()
+                yield _next_result(inflight)
         while inflight:
-            bids, bseqs, fut = inflight.popleft()
-            yield bids, bseqs, fut.result()
+            yield _next_result(inflight)
+
+
+def _next_result(inflight: deque):
+    """(ids, seqs, result) of the oldest batch in flight, waited for as
+    span ``runner.result_wait``."""
+    bids, bseqs, serial, fut = inflight.popleft()
+    with timing.span("runner.result_wait", serial):
+        result = fut.result()
+    return bids, bseqs, result
 
 
 def _pow2_at_least(x: int, lo: int = 8) -> int:
@@ -488,6 +475,7 @@ class TorchDemuxEngine:
         # flat row indexing is int32: split oversized batches
         if R_total_pad * L >= 2**31:
             if B == 1:
+                timing.count("fallback.batches")
                 return self._table_from_fallback(read_ids, seqs, lens)
             half = B // 2
             return self._concat_tables(
@@ -509,53 +497,22 @@ class TorchDemuxEngine:
         mono = self.mono_upload
         desc = (self.meta_mode == "desc" and mats[0].pack_mode == 2
                 and int(lens.max()) < 1 << 29 and (mono or not sharded))
-        with _phase("pack_upload"):
-            batches = self._upload(mats, desc, mono, devices, L, step,
-                                   R_host_pad, S_pad)
-
-        packets: List[tuple] = []  # (GroupPlan, packet dict), group-major
-        overflow_reads: set = set()
         H_cap = max(self._h_cap(len(b), p, R_total_pad)
                     for b, p in zip(buckets, plans))
+        with timing.inflight():
+            fetched = self._device_part(mats, desc, mono, devices, L, step,
+                                        R_host_pad, S_pad, H_cap, sharded)
+        packets: List[tuple] = []  # (GroupPlan, packet dict), group-major
+        overflow_reads: set = set()
         nw = _over_words(R_total_pad)
-        mode = "sharded" if sharded else "single"
-        # every shard's call is enqueued before any is fetched
-        if len(self.plans) > 1 and self.fuse_groups and mono:
-            # every group in one device call and one fetch a shard (on
-            # the blob, as the reference does)
-            self.last_dispatch = mode + "-fused"
-            with _phase("demux_call.dispatch"):
-                outs = [self._dispatch(self.plans, bt, H_cap) for bt in batches]
-            with _phase("demux_call.fetch"):
-                outs = [self._fetch(o) for o in outs]
-            pending, off = [], 0
-            for gplan in self.plans:
-                n = H_cap * self._rec_wire(gplan, L, R_total_pad)[0] + nw + 1
-                pending.append((gplan, [o[off : off + n] for o in outs]))
-                off += n
-        else:
-            self.last_dispatch = mode
-            with _phase("demux_call.dispatch"):
-                pending = [(g, [self._dispatch((g,), bt, H_cap) for bt in batches])
-                           for g in self.plans]
-        for gplan, outs in pending:
-            if isinstance(outs[0], _Launched):  # the fused path fetched
-                with _phase("demux_call.fetch"):
-                    outs = [self._fetch(o) for o in outs]
+        if any(outs is None for _g, outs, _c in fetched):
+            # a group's retry overflowed too: the whole batch falls back
+            timing.count("fallback.batches")
+            overflow_reads.update(range(B))
+        for gplan, outs, cap in fetched:
+            if outs is None:
+                continue
             wcols, wbits = self._rec_wire(gplan, L, R_total_pad)
-            cap = H_cap
-            total = max(int(o[-1]) for o in outs)
-            if total > cap:
-                # Hit-dense batch: one retry of this group on every shard
-                # at a larger capacity (sticky — later batches start
-                # there), then whole-batch fallback.
-                cap = _retry_cap(total, H_cap)
-                self._h_cap_hint = max(self._h_cap_hint, cap)
-                outs = [self._dispatch((gplan,), bt, cap) for bt in batches]
-                outs = [self._fetch(o) for o in outs]
-                if max(int(o[-1]) for o in outs) > cap:
-                    overflow_reads.update(range(B))
-                    continue
             # a read lives on one shard, so group-major shard-minor
             # packets keep each read's rows in group order
             for out_np, mat in zip(outs, mats):
@@ -564,14 +521,67 @@ class TorchDemuxEngine:
                 for r in _over_rows(over, R_total_pad):
                     if mat.row_read[r] >= 0:
                         overflow_reads.add(int(mat.row_read[r]))
-                with _phase("assemble.host"):
+                with timing.span("assemble.host"):
                     pkt = self._gather_packet(rec, mat.row_read, mat.meta)
                 if pkt is not None:
                     packets.append((gplan, pkt))
 
-        with _phase("assemble.host"):
+        with timing.span("assemble.host"):
             return self._finish_table(read_ids, seqs, lens, packets,
                                       overflow_reads)
+
+    def _device_part(self, mats, desc: bool, mono: bool, devices, L: int,
+                     step: int, R_host_pad: int, S_pad: int, H_cap: int,
+                     sharded: bool):
+        """Upload, dispatch and fetch of one batch (the span
+        ``engine.inflight`` encloses it): a (group plan, every shard's
+        fetched output, hit capacity) a group, group-major, with outputs
+        None for a group whose overflow retry overflowed too."""
+        with timing.span("pack_upload"):
+            batches = self._upload(mats, desc, mono, devices, L, step,
+                                   R_host_pad, S_pad)
+        R_total_pad = R_host_pad + S_pad
+        mode = "sharded" if sharded else "single"
+        # every shard's call is enqueued before any is fetched
+        if len(self.plans) > 1 and self.fuse_groups and mono:
+            # every group in one device call and one fetch a shard (on
+            # the blob, as the reference does)
+            self.last_dispatch = mode + "-fused"
+            with timing.span("demux_call.dispatch"):
+                outs = [self._dispatch(self.plans, bt, H_cap) for bt in batches]
+            with timing.span("demux_call.fetch"):
+                outs = [self._fetch(o) for o in outs]
+            pending, off = [], 0
+            nw = _over_words(R_total_pad)
+            for gplan in self.plans:
+                n = H_cap * self._rec_wire(gplan, L, R_total_pad)[0] + nw + 1
+                pending.append((gplan, [o[off : off + n] for o in outs]))
+                off += n
+        else:
+            self.last_dispatch = mode
+            with timing.span("demux_call.dispatch"):
+                pending = [(g, [self._dispatch((g,), bt, H_cap) for bt in batches])
+                           for g in self.plans]
+        fetched = []
+        for gplan, outs in pending:
+            if isinstance(outs[0], _Launched):  # the fused path fetched
+                with timing.span("demux_call.fetch"):
+                    outs = [self._fetch(o) for o in outs]
+            cap = H_cap
+            total = max(int(o[-1]) for o in outs)
+            if total > cap:
+                # Hit-dense batch: one retry of this group on every shard
+                # at a larger capacity (sticky — later batches start
+                # there), then whole-batch fallback.
+                cap = _retry_cap(total, H_cap)
+                self._h_cap_hint = max(self._h_cap_hint, cap)
+                with timing.span("demux_call.retry"):
+                    outs = [self._dispatch((gplan,), bt, cap) for bt in batches]
+                    outs = [self._fetch(o) for o in outs]
+                if max(int(o[-1]) for o in outs) > cap:
+                    outs = None
+            fetched.append((gplan, outs, cap))
+        return fetched
 
     def _upload(self, mats, desc: bool, mono: bool, devices, L: int,
                 step: int, R_host_pad: int, S_pad: int) -> List[_DevBatch]:
@@ -605,12 +615,16 @@ class TorchDemuxEngine:
             built = [comp.build_blob_named(*a.items()) for a in arrays]
             spans = built[0][1]
             blobs = torch.from_numpy(np.stack([b for b, _spans in built]))
-            blobs = [blobs[d].to(dev) for d, dev in enumerate(devices)]
+            with timing.span("upload.copy"):
+                blobs = [blobs[d].to(dev) for d, dev in enumerate(devices)]
             parts = [comp._blob_parts(b, spans) for b in blobs]
         else:
             spans, blobs = None, [None] * len(devices)
-            parts = [{k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
-                      for k, v in a.items()} for a, dev in zip(arrays, devices)]
+            parts = [{k: torch.from_numpy(np.ascontiguousarray(v))
+                      for k, v in a.items()} for a in arrays]
+            with timing.span("upload.copy"):
+                parts = [{k: t.to(dev) for k, t in p.items()}
+                         for p, dev in zip(parts, devices)]
         return [
             _DevBatch(parts=p, device=p["host_packed"].device,
                       pack_mode=m.pack_mode, L=L, step=step, S_pad=S_pad,
@@ -775,7 +789,7 @@ class TorchDemuxEngine:
         row bucket), and the full metadata, which the packet assembly reads
         and the wire-metadata mode uploads."""
         R_total_pad = R_host_pad + S_pad
-        with _phase("encode"):
+        with timing.span("encode"):
             host_packed, row_start, exc, pack_mode = self._pack_host_rows(
                 seq_bytes, plan, R_host_pad, L, force_nibble=force_nibble
             )

@@ -5,6 +5,8 @@ Counterpart of :mod:`barbell_tpu.models.twotier` on
 :class:`~barbell_tpu_torch.models.pipeline.TorchDemuxEngine`.
 Contract (docs/SEMANTICS.md deviation 7): triggered reads get exactly
 the deep-window row set, untriggered reads the shallow-window row set.
+Under ``BARBELL_TIMING=1`` the counter ``rescue.reads`` counts the
+reads the deep tier rescued (:mod:`~barbell_tpu_torch.timing`).
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from .. import PADDING
+from .. import PADDING, timing
 from . import hittable
 from .hittable import HitTable
 from .pipeline import TorchDemuxEngine, _pow2_at_least
@@ -131,6 +133,7 @@ class TwoTierDemuxEngine:
             return t
         rescue = np.unique(c["reads"][trig])
         self.last_rescued = int(rescue.size)
+        timing.count("rescue.reads", self.last_rescued)
         td = self._deep_call(
             [read_ids[int(i)] for i in rescue],
             [seqs[int(i)] for i in rescue],

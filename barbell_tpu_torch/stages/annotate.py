@@ -13,7 +13,8 @@ stay contiguous in the output — filter/inspect group by consecutive
 ``stream_index % world == rank`` and writes a ``<out>.idx`` sidecar for
 :func:`~barbell_tpu_torch.parallel.distributed.merge_annotation_shards`.
 ``BARBELL_PROFILE_DIR=<dir>`` records a ``torch.profiler`` trace of the
-whole stream (host, and the card's kernels and copies) into ``dir``
+whole stream into ``dir``: the card's kernels, copies and runtime calls
+(CPU ops on the CPU) and the program's spans on one timeline
 (:func:`profile_trace`).
 """
 
@@ -26,6 +27,7 @@ from collections import deque
 from dataclasses import dataclass
 from typing import List, Optional, Sequence
 
+from .. import timing
 from ..models.barcodes import BarcodeGroup
 from ..models.demux import Demuxer
 from ..models.hittable import emit_tsv_lines
@@ -126,18 +128,22 @@ class _OracleEngine:
 @contextlib.contextmanager
 def profile_trace(engine, name: str):
     """``BARBELL_PROFILE_DIR=<dir>``: a torch.profiler trace of the block
-    (CPU activity, and CUDA activity when the engine runs on a card),
-    written as ``<dir>/<name>.<pid>.trace.json`` (Chrome trace format)
-    when the block ends.  A profiler that cannot start, or a trace that
-    cannot be written, costs one line on stderr, not the run."""
+    with the program's spans (:mod:`~barbell_tpu_torch.timing`: the
+    runner's stages, the engine's phases and calls in flight, graph
+    captures) on the profiler's clock, written as
+    ``<dir>/<name>.<pid>.trace.json`` (Chrome trace format) when the
+    block ends.  On a card the profiler records CUDA activity alone
+    (kernels, copies and the runtime calls that issue them), which keeps
+    the trace of a long run small; on the CPU, CPU ops.  A profiler that
+    cannot start, or a trace that cannot be written, costs one line on
+    stderr, not the run."""
     profile_dir = os.environ.get("BARBELL_PROFILE_DIR")
     prof = None
     if profile_dir:
         from torch.profiler import ProfilerActivity, profile
 
-        acts = [ProfilerActivity.CPU]
-        if any(d.type == "cuda" for d in getattr(engine, "devices", ())):
-            acts.append(ProfilerActivity.CUDA)
+        on_card = any(d.type == "cuda" for d in getattr(engine, "devices", ()))
+        acts = [ProfilerActivity.CUDA] if on_card else [ProfilerActivity.CPU]
         try:
             os.makedirs(profile_dir, exist_ok=True)
             prof = profile(activities=acts)
@@ -146,14 +152,20 @@ def profile_trace(engine, name: str):
             print(f"BARBELL_PROFILE_DIR: profiler did not start ({exc}); "
                   f"running without a trace", file=sys.stderr)
             prof = None
+    if prof is not None:
+        was_on, timing.ENABLED = timing.ENABLED, True
+        anchor = timing.keep_intervals()
     try:
         yield
     finally:
         if prof is not None:
+            kept = timing.stop_keeping()
+            timing.ENABLED = was_on
             try:
                 prof.stop()
-                prof.export_chrome_trace(os.path.join(
-                    profile_dir, f"{name}.{os.getpid()}.trace.json"))
+                path = os.path.join(profile_dir, f"{name}.{os.getpid()}.trace.json")
+                prof.export_chrome_trace(path)
+                timing.add_to_chrome_trace(path, kept, anchor)
             except Exception as exc:  # noqa: BLE001 - as above
                 print(f"BARBELL_PROFILE_DIR: trace not written ({exc})",
                       file=sys.stderr)

@@ -338,12 +338,21 @@ def _demux_using_kit_streaming(
     only by a DIFFERENT-id read that itself has rows — exactly the
     consecutive-read_id row grouping the staged inspect/filter see in
     annotation.tsv.  Single-member runs (unique read ids) flush
-    columnar; multi-member runs merge rows and take the object path."""
+    columnar; multi-member runs merge rows and take the object path.
+
+    Under ``BARBELL_TIMING=1`` each batch's work on this thread is a
+    span (:mod:`~barbell_tpu_torch.timing`): ``runner.parse`` (the FASTQ
+    read and header split), ``runner.result_wait`` (the wait for the
+    engine's next table), ``runner.annotate`` (the annotation rows),
+    ``runner.filter`` (segments, labels, pattern match, trim plan) and
+    ``runner.trim`` (the per-read runs, trimmed writes and buffers)."""
+    import itertools
     from collections import Counter, deque
 
     from ..models.hittable import emit_tsv_lines
     from ..models.pipeline import engine_map_batches
     from ..models.records import AnnotationWriter
+    from ..timing import span
     from ..utils.fastx import split_fastq_header, validate_fastq_paths
     from ..utils.fastx_native import iter_fastq_batches_auto
     from ..utils.progress import TRIM_METRICS, ProgressTracker
@@ -393,15 +402,20 @@ def _demux_using_kit_streaming(
     meta_queue: deque = deque()  # per-batch (descs, quals)
 
     def batches():
-        for batch in iter_fastq_batches_auto(fastq_files, config.batch_size):
-            ids, descs, seqs, quals = [], [], [], []
-            for h, s, q in batch:
-                rid, desc = split_fastq_header(h)
-                ids.append(rid)
-                descs.append(desc)
-                seqs.append(s)
-                quals.append(q)
-            meta_queue.append((descs, quals))
+        reader = iter_fastq_batches_auto(fastq_files, config.batch_size)
+        for serial in itertools.count():
+            with span("runner.parse", serial):
+                batch = next(reader, None)
+                if batch is None:
+                    return
+                ids, descs, seqs, quals = [], [], [], []
+                for h, s, q in batch:
+                    rid, desc = split_fastq_header(h)
+                    ids.append(rid)
+                    descs.append(desc)
+                    seqs.append(s)
+                    quals.append(q)
+                meta_queue.append((descs, quals))
             yield ids, seqs
 
     progress = ProgressTracker(TRIM_METRICS)
@@ -527,62 +541,66 @@ def _demux_using_kit_streaming(
 
     try:
         with profile_trace(engine, "kit"):
-            for ids, seqs, table in engine_map_batches(engine, batches()):
-                descs, quals = meta_queue.popleft()
-                lines = emit_tsv_lines(table)
-                anno_writer.write_lines(lines)
-                seg_start, seg_len = segment_table(table)
-                slabels = labeler.labels(table, seg_start, seg_len)
-                win, passed = cpats.match(table, seg_start, seg_len)
-                seg_start_l = seg_start.tolist()
-                seg_len_l = seg_len.tolist()
-                win_l = win.tolist()
-                passed_l = passed.tolist()
-                tcols = table.cols
-                rsf_l = tcols["rsf"].tolist()
-                ref_l = tcols["ref"].tolist()
-                tlabels = table.labels
-                rowlab_l = [tlabels[k] for k in tcols["label"].tolist()]
-                tplan = batch_trim_plan(cpats, table, seg_start, win, passed)
-                progress.add(TOTAL, len(ids))
-                for i, rid in enumerate(ids):
-                    l = seg_len_l[i]
-                    if l:
-                        s = seg_start_l[i]
-                        e = s + l
-                        trim = (
-                            (tplan[1][i], tplan[2][i], tplan[3][i])
-                            if tplan is not None and tplan[0][i]
-                            else None
-                        )
-                        member = (
-                            table, s, l, slabels[i], win_l[i], passed_l[i],
-                            lines[s:e], rsf_l[s:e], ref_l[s:e], rowlab_l[s:e],
-                            trim,
-                        )
-                        if rid != pend_id:
-                            flush_run()
-                            pend_id = rid
-                            pend_members = [member]
-                            pend_recs = [(descs[i], seqs[i], quals[i])]
-                        else:
-                            pend_members.append(member)
+            for serial, (ids, seqs, table) in enumerate(
+                    engine_map_batches(engine, batches())):
+                with span("runner.annotate", serial):
+                    descs, quals = meta_queue.popleft()
+                    lines = emit_tsv_lines(table)
+                    anno_writer.write_lines(lines)
+                with span("runner.filter", serial):
+                    seg_start, seg_len = segment_table(table)
+                    slabels = labeler.labels(table, seg_start, seg_len)
+                    win, passed = cpats.match(table, seg_start, seg_len)
+                    seg_start_l = seg_start.tolist()
+                    seg_len_l = seg_len.tolist()
+                    win_l = win.tolist()
+                    passed_l = passed.tolist()
+                    tcols = table.cols
+                    rsf_l = tcols["rsf"].tolist()
+                    ref_l = tcols["ref"].tolist()
+                    tlabels = table.labels
+                    rowlab_l = [tlabels[k] for k in tcols["label"].tolist()]
+                    tplan = batch_trim_plan(cpats, table, seg_start, win, passed)
+                with span("runner.trim", serial):
+                    progress.add(TOTAL, len(ids))
+                    for i, rid in enumerate(ids):
+                        l = seg_len_l[i]
+                        if l:
+                            s = seg_start_l[i]
+                            e = s + l
+                            trim = (
+                                (tplan[1][i], tplan[2][i], tplan[3][i])
+                                if tplan is not None and tplan[0][i]
+                                else None
+                            )
+                            member = (
+                                table, s, l, slabels[i], win_l[i], passed_l[i],
+                                lines[s:e], rsf_l[s:e], ref_l[s:e], rowlab_l[s:e],
+                                trim,
+                            )
+                            if rid != pend_id:
+                                flush_run()
+                                pend_id = rid
+                                pend_members = [member]
+                                pend_recs = [(descs[i], seqs[i], quals[i])]
+                            else:
+                                pend_members.append(member)
+                                pend_recs.append((descs[i], seqs[i], quals[i]))
+                        elif rid == pend_id:
+                            # row-less record of the live run's id: trimmed with
+                            # the run's annotations (the staged trim map does)
                             pend_recs.append((descs[i], seqs[i], quals[i]))
-                    elif rid == pend_id:
-                        # row-less record of the live run's id: trimmed with
-                        # the run's annotations (the staged trim map does)
-                        pend_recs.append((descs[i], seqs[i], quals[i]))
-                    # else: zero-match read — no annotation rows, so it
-                    # neither splits the run nor gets trimmed
-                    if len(pend_recs) >= _RUN_CAP:
-                        progress.print_error(
-                            f"warning: read id {pend_id!r} repeats over "
-                            f"{_RUN_CAP} consecutive records; flushing early"
-                        )
-                        flush_run()
-                        pend_id, pend_members, pend_recs = None, [], []
-                drain_bufs()
-                progress.refresh()
+                        # else: zero-match read — no annotation rows, so it
+                        # neither splits the run nor gets trimmed
+                        if len(pend_recs) >= _RUN_CAP:
+                            progress.print_error(
+                                f"warning: read id {pend_id!r} repeats over "
+                                f"{_RUN_CAP} consecutive records; flushing early"
+                            )
+                            flush_run()
+                            pend_id, pend_members, pend_recs = None, [], []
+                    drain_bufs()
+                    progress.refresh()
         flush_run()
         drain_bufs()
         anno_writer.finish()

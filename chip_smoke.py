@@ -2157,6 +2157,7 @@ def check_profile(fq_ends, fq_whole, d, wrappers, smi, batches) -> None:
     whole-read batch (``batches``) make the host wait for the card."""
     from torch.profiler import ProfilerActivity, profile
 
+    from barbell_tpu_torch import timing
     from barbell_tpu_torch.models import pipeline
     from barbell_tpu_torch.models.pipeline import TorchDemuxEngine
     from barbell_tpu_torch.models.twotier import make_ends_engine
@@ -2168,7 +2169,7 @@ def check_profile(fq_ends, fq_whole, d, wrappers, smi, batches) -> None:
         torch.ones(1, device="cuda").add_(1)
         torch.cuda.synchronize()
     log(f"[profile] profiler warm-up {time.perf_counter() - t0:.1f}s")
-    pipeline._TIMING = True
+    timing.ENABLED = True
     try:
         for (name, fq, n_reads), mode in (
                 (p, m) for p in (("kit", fq_ends, N_ENDS),
@@ -2238,7 +2239,7 @@ def check_profile(fq_ends, fq_whole, d, wrappers, smi, batches) -> None:
                 f"ms, summed over threads): "
                 + "; ".join(f"{k} ({n}, {ms:.1f})" for k, (n, ms) in top_rt))
     finally:
-        pipeline._TIMING = False
+        timing.ENABLED = False
         pipeline.TIMINGS.clear()
     for name, eng, batch in (
             ("ends", make_ends_engine(kit_groups(KIT), kit_plan(KIT), device="cuda"),
@@ -2305,10 +2306,11 @@ def _profiled_pass(eng, batches) -> dict:
     the device calls made (:class:`BatchRecorder`)."""
     from torch.profiler import ProfilerActivity, profile
 
+    from barbell_tpu_torch import timing
     from barbell_tpu_torch.models import pipeline
 
     pipeline.TIMINGS.clear()
-    pipeline._TIMING = True
+    timing.ENABLED = True
     try:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, \
@@ -2320,7 +2322,7 @@ def _profiled_pass(eng, batches) -> dict:
             wall_ms = (time.perf_counter() - t0) * 1000
         dispatch_s = pipeline.TIMINGS["demux_call.dispatch"][0]
     finally:
-        pipeline._TIMING = False
+        timing.ENABLED = False
         pipeline.TIMINGS.clear()
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, "trace.json")

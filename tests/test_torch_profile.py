@@ -15,6 +15,7 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)  # one intra-op thread a test worker: the workers share the CPUs
 
+from barbell_tpu_torch import timing  # noqa: E402
 from barbell_tpu_torch.models.barcodes import BarcodeGroup  # noqa: E402
 from barbell_tpu_torch.ops.edit_model import get_edit_cut_off  # noqa: E402
 from barbell_tpu_torch.sim.simulate import (  # noqa: E402
@@ -36,8 +37,8 @@ from barbell_tpu_torch.stages.annotate import (  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_BARCODES = 8
-PHASES = {"encode", "pack_upload", "demux_call.dispatch", "demux_call.fetch",
-          "assemble.host"}
+PHASES = {"encode", "pack_upload", "upload.copy", "demux_call.dispatch",
+          "demux_call.fetch", "assemble.host", "engine.inflight"}
 
 
 def _groups():
@@ -113,16 +114,19 @@ def test_profiler_that_cannot_start_does_not_fail_the_run(tmp_path, monkeypatch,
 
 def test_timing_report_names_every_phase(monkeypatch):
     """With the timing flag on, one batch through the engine accumulates
-    all five phases, each at least once."""
-    monkeypatch.setattr(pipeline, "_TIMING", True)
-    monkeypatch.setattr(pipeline, "TIMINGS", {})
+    all six phases and the calls in flight, each at least once."""
+    monkeypatch.setattr(timing, "ENABLED", True)
+    pipeline.TIMINGS.clear()
     ids, seqs = zip(*_reads(4, seed=5))
     engine = TorchDemuxEngine(_groups(), device="cpu")
-    engine.demux_batch_table(list(ids), list(seqs))
-    assert set(pipeline.TIMINGS) == PHASES
-    assert all(n >= 1 and s >= 0 for s, n in pipeline.TIMINGS.values())
-    report = pipeline.timing_report()
-    assert all(f"  {name}" in report for name in PHASES)
+    try:
+        engine.demux_batch_table(list(ids), list(seqs))
+        assert set(pipeline.TIMINGS) == PHASES
+        assert all(n >= 1 and s >= 0 for s, n, *_cpu in pipeline.TIMINGS.values())
+        report = pipeline.timing_report()
+        assert all(f"  {name}" in report for name in PHASES)
+    finally:
+        pipeline.TIMINGS.clear()
 
 
 def test_engine_map_batches_same_tables_at_any_depth():
