@@ -1,7 +1,14 @@
 """Native IO extension loader (ctypes; builds lazily with g++ if needed).
 
-Falls back cleanly when no compiler/zlib is available — the pure-Python
-readers in :mod:`barbell_tpu.utils.fastx` remain the portable path.
+Two libraries, each built on first use: ``libbarbell_io.so`` (plain C:
+the FASTQ reader and writers, 2-bit encoders, Myers helpers) and the
+FASTQ batch reader that builds Python objects (``fastq_batch.cpp``,
+against the interpreter's own headers, loaded through ``ctypes.PyDLL``).
+Both share ``fastq_reader.h``.
+
+Falls back cleanly when no compiler/zlib (or no Python headers) is
+available — the pure-Python readers in :mod:`barbell_tpu.utils.fastx`
+remain the portable path.
 """
 
 from __future__ import annotations
@@ -9,27 +16,36 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
+import sysconfig
 import threading
 from typing import Optional
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "fastq_io.cpp")
+_HEADER = os.path.join(_HERE, "fastq_reader.h")
 _BUILD = os.path.join(os.path.dirname(_HERE), "build")
 _SO = os.path.join(_BUILD, "libbarbell_io.so")
+_PY_SRC = os.path.join(_HERE, "fastq_batch.cpp")
+# the interpreter's ABI in the name: a library built for one Python is
+# never loaded by another
+_PY_SO = os.path.join(
+    _BUILD, f"libbarbell_fastq_batch.{sysconfig.get_config_var('SOABI') or 'py'}.so")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
+_pylib: Optional[ctypes.PyDLL] = None
+_py_tried = False
 
 
-def _build() -> bool:
+def _build(src: str, so: str, flags=()) -> bool:
     # Build to a private temp path and os.rename into place: concurrent
     # processes (per-rank shards, parallel test workers) may race the
     # build, and linking straight onto the live path could hand a torn
     # .so to a concurrent CDLL (or SIGBUS a process that already
     # mmapped the old inode — rename keeps the old inode alive).
     os.makedirs(_BUILD, exist_ok=True)
-    tmp = f"{_SO}.build.{os.getpid()}"
+    tmp = f"{so}.build.{os.getpid()}"
     cmd = [
         "g++",
         "-O3",
@@ -38,7 +54,8 @@ def _build() -> bool:
         "-fPIC",
         "-pthread",
         "-std=c++17",
-        _SRC,
+        *flags,
+        src,
         "-o",
         tmp,
         "-lz",
@@ -47,7 +64,7 @@ def _build() -> bool:
         res = subprocess.run(cmd, capture_output=True, timeout=120)
         if res.returncode != 0 or not os.path.exists(tmp):
             return False
-        os.replace(tmp, _SO)
+        os.replace(tmp, so)
         return True
     except (OSError, subprocess.TimeoutExpired):
         return False
@@ -57,6 +74,17 @@ def _build() -> bool:
                 os.unlink(tmp)
             except OSError:
                 pass
+
+
+def _built(src: str, so: str, flags=()) -> bool:
+    """Whether ``so`` is there and newer than ``src`` and the shared
+    header, building it if not."""
+    try:
+        newest = max(os.path.getmtime(p) for p in (src, _HEADER) if os.path.exists(p))
+        stale = not os.path.exists(so) or os.path.getmtime(so) < newest
+    except (OSError, ValueError):
+        stale = not os.path.exists(so)
+    return not stale or _build(src, so, flags)
 
 
 def get_lib() -> Optional[ctypes.CDLL]:
@@ -69,16 +97,8 @@ def get_lib() -> Optional[ctypes.CDLL]:
         if _lib is not None or _tried:
             return _lib
         _tried = True
-        try:
-            stale = not os.path.exists(_SO) or (
-                os.path.exists(_SRC)
-                and os.path.getmtime(_SO) < os.path.getmtime(_SRC)
-            )
-        except OSError:
-            stale = not os.path.exists(_SO)
-        if stale:
-            if not _build():
-                return None
+        if not _built(_SRC, _SO):
+            return None
         try:
             lib = ctypes.CDLL(_SO)
         except OSError:
@@ -209,3 +229,34 @@ def get_lib() -> Optional[ctypes.CDLL]:
 
 def available() -> bool:
     return get_lib() is not None
+
+
+def get_pylib() -> Optional[ctypes.PyDLL]:
+    """The FASTQ batch reader that builds Python objects
+    (``bbfq_open`` / ``bbfq_next`` / ``bbfq_close``), building it on
+    first use; None where it cannot be built (no compiler, zlib or
+    Python headers)."""
+    global _pylib, _py_tried
+    if _pylib is not None or _py_tried:
+        return _pylib
+    with _lock:
+        if _pylib is not None or _py_tried:
+            return _pylib
+        _py_tried = True
+        include = sysconfig.get_paths().get("include") or ""
+        if not os.path.exists(os.path.join(include, "Python.h")):
+            return None
+        if not _built(_PY_SRC, _PY_SO, ["-fvisibility-inlines-hidden", f"-I{include}"]):
+            return None
+        try:
+            lib = ctypes.PyDLL(_PY_SO)
+        except OSError:
+            return None
+        lib.bbfq_open.restype = ctypes.c_void_p
+        lib.bbfq_open.argtypes = [ctypes.POINTER(ctypes.c_char_p), ctypes.c_int]
+        lib.bbfq_next.restype = ctypes.py_object
+        lib.bbfq_next.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        lib.bbfq_close.restype = None
+        lib.bbfq_close.argtypes = [ctypes.c_void_p]
+        _pylib = lib
+        return _pylib

@@ -35,7 +35,6 @@ from ..models.pipeline import TorchDemuxEngine, engine_map_batches
 from ..models.records import AnnotationWriter, BarcodeType
 from ..models.twotier import EndsPlan, make_ends_engine
 from ..ops.edit_model import get_edit_cut_off
-from ..utils.fastx import split_fastq_header
 from ..utils.fastx_native import iter_fastq_batches_auto
 from ..utils.progress import ANNOTATE_METRICS, ProgressTracker
 
@@ -202,9 +201,7 @@ def annotate(
     def batches():
         if shard is None:
             for batch in iter_fastq_batches_auto(read_files, config.batch_size):
-                read_ids = [split_fastq_header(h)[0] for h, _s, _q in batch]
-                seqs = [s for _h, s, _q in batch]
-                yield read_ids, seqs
+                yield batch.ids, batch.seqs
             return
         rank, world = shard
         idx = 0
@@ -212,9 +209,9 @@ def annotate(
         seqs: list = []
         idxs: list = []
         for batch in iter_fastq_batches_auto(read_files, config.batch_size):
-            for h, s, _q in batch:
+            for rid, s in zip(batch.ids, batch.seqs):
                 if idx % world == rank:
-                    read_ids.append(split_fastq_header(h)[0])
+                    read_ids.append(rid)
                     seqs.append(s)
                     idxs.append(idx)
                     if len(read_ids) >= config.batch_size:

@@ -341,11 +341,13 @@ def _demux_using_kit_streaming(
     columnar; multi-member runs merge rows and take the object path.
 
     Under ``BARBELL_TIMING=1`` each batch's work on this thread is a
-    span (:mod:`~barbell_tpu_torch.timing`): ``runner.parse`` (the FASTQ
-    read and header split), ``runner.result_wait`` (the wait for the
-    engine's next table), ``runner.annotate`` (the annotation rows),
-    ``runner.filter`` (segments, labels, pattern match, trim plan) and
-    ``runner.trim`` (the per-read runs, trimmed writes and buffers)."""
+    span (:mod:`~barbell_tpu_torch.timing`): ``runner.parse`` (taking
+    the next batch from the reader thread, which times each FASTQ read
+    and header split as ``reader.read``), ``runner.result_wait`` (the
+    wait for the engine's next table), ``runner.annotate`` (the
+    annotation rows), ``runner.filter`` (segments, labels, pattern
+    match, trim plan) and ``runner.trim`` (the per-read runs, trimmed
+    writes and buffers)."""
     import itertools
     from collections import Counter, deque
 
@@ -353,8 +355,9 @@ def _demux_using_kit_streaming(
     from ..models.pipeline import engine_map_batches
     from ..models.records import AnnotationWriter
     from ..timing import span
-    from ..utils.fastx import split_fastq_header, validate_fastq_paths
-    from ..utils.fastx_native import iter_fastq_batches_auto
+    from ..utils import fastx_native
+    from ..utils.fastx import validate_fastq_paths
+    from ..utils.fastx_native import ReadAhead
     from ..utils.progress import TRIM_METRICS, ProgressTracker
     from .annotate import _apply_flank_threshold, make_engine, profile_trace
     from .filter import check_filter_pass
@@ -402,21 +405,20 @@ def _demux_using_kit_streaming(
     meta_queue: deque = deque()  # per-batch (descs, quals)
 
     def batches():
-        reader = iter_fastq_batches_auto(fastq_files, config.batch_size)
-        for serial in itertools.count():
-            with span("runner.parse", serial):
-                batch = next(reader, None)
-                if batch is None:
-                    return
-                ids, descs, seqs, quals = [], [], [], []
-                for h, s, q in batch:
-                    rid, desc = split_fastq_header(h)
-                    ids.append(rid)
-                    descs.append(desc)
-                    seqs.append(s)
-                    quals.append(q)
-                meta_queue.append((descs, quals))
-            yield ids, seqs
+        # the FASTQ read and header split run a batch ahead on a reader
+        # thread; this thread only takes each finished batch
+        reader = ReadAhead(fastx_native.iter_fastq_batches_auto(
+            fastq_files, config.batch_size))
+        try:
+            for serial in itertools.count():
+                with span("runner.parse", serial):
+                    batch = reader.take()
+                    if batch is None:
+                        return
+                    meta_queue.append((batch.descs, batch.quals))
+                yield batch.ids, batch.seqs
+        finally:
+            reader.close()
 
     progress = ProgressTracker(TRIM_METRICS)
     TOTAL, KEPT, SPLIT, FAILED = 0, 1, 2, 3
@@ -539,10 +541,11 @@ def _demux_using_kit_streaming(
                 )
             write_trimmed(results, desc)
 
+    feed = batches()
     try:
         with profile_trace(engine, "kit"):
             for serial, (ids, seqs, table) in enumerate(
-                    engine_map_batches(engine, batches())):
+                    engine_map_batches(engine, feed)):
                 with span("runner.annotate", serial):
                     descs, quals = meta_queue.popleft()
                     lines = emit_tsv_lines(table)
@@ -606,6 +609,7 @@ def _demux_using_kit_streaming(
         anno_writer.finish()
         filt_writer.finish()
     finally:
+        feed.close()  # stops the reader thread on an early exit
         writers.close_all()
         for fh in (anno_fh, ppr_fh, filt_fh):
             fh.close()

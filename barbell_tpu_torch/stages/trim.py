@@ -23,7 +23,7 @@ from ..models.records import (
     read_annotations,
 )
 from ..utils import dna
-from ..utils.fastx import split_fastq_header, validate_fastq_paths
+from ..utils.fastx import validate_fastq_paths
 from ..utils.fastx_native import iter_fastq_batches_auto
 from ..utils.progress import TRIM_METRICS, ProgressTracker
 
@@ -339,11 +339,10 @@ def trim_matches(
         # batched native reader (GIL-free parse + gzip) when available
         records = (
             rec
-            for batch in iter_fastq_batches_auto(read_fastq_files, 2048)
-            for rec in batch
+            for b in iter_fastq_batches_auto(read_fastq_files, 2048)
+            for rec in zip(b.ids, b.descs, b.seqs, b.quals)
         )
-        for header, seq, qual in records:
-            read_id, desc = split_fastq_header(header)
+        for read_id, desc, seq, qual in records:
             progress.inc(TOTAL_IDX)
             annos = annotations_by_read.get(read_id)
             if annos is not None:
