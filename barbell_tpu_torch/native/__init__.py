@@ -2,8 +2,9 @@
 
 Two libraries, each built on first use: ``libbarbell_io.so`` (plain C:
 the FASTQ reader and writers, 2-bit encoders, Myers helpers) and the
-FASTQ batch reader that builds Python objects (``fastq_batch.cpp``,
-against the interpreter's own headers, loaded through ``ctypes.PyDLL``).
+library that builds Python objects (``fastq_batch.cpp``, against the
+interpreter's own headers, loaded through ``ctypes.PyDLL``): the FASTQ
+batch reader and the kit runner's filter tail and trim of a batch.
 Both share ``fastq_reader.h``.
 
 Falls back cleanly when no compiler/zlib (or no Python headers) is
@@ -232,10 +233,11 @@ def available() -> bool:
 
 
 def get_pylib() -> Optional[ctypes.PyDLL]:
-    """The FASTQ batch reader that builds Python objects
-    (``bbfq_open`` / ``bbfq_next`` / ``bbfq_close``), building it on
-    first use; None where it cannot be built (no compiler, zlib or
-    Python headers)."""
+    """The library that builds Python objects: the FASTQ batch reader
+    (``bbfq_open`` / ``bbfq_next`` / ``bbfq_close``) and the kit
+    runner's run closer (``bbkt_close_runs``), building it on first use;
+    None where it cannot be built (no compiler, zlib or Python
+    headers)."""
     global _pylib, _py_tried
     if _pylib is not None or _py_tried:
         return _pylib
@@ -258,5 +260,14 @@ def get_pylib() -> Optional[ctypes.PyDLL]:
         lib.bbfq_next.argtypes = [ctypes.c_void_p, ctypes.c_int]
         lib.bbfq_close.restype = None
         lib.bbfq_close.argtypes = [ctypes.c_void_p]
+        lib.bbkt_close_runs.restype = ctypes.py_object
+        lib.bbkt_close_runs.argtypes = [
+            *[ctypes.py_object] * 8,  # ids descs seqs quals slabels lines cutrows names
+            ctypes.c_void_p,  # int64 [8, n] columns
+            ctypes.c_long,  # n reads
+            ctypes.py_object,  # the open run's id, or None
+            ctypes.c_long,  # its records
+            ctypes.c_long,  # the early-flush count
+        ]
         _pylib = lib
         return _pylib

@@ -337,8 +337,17 @@ def _demux_using_kit_streaming(
     Grouping: a "run" merges annotation rows of same-id reads delimited
     only by a DIFFERENT-id read that itself has rows — exactly the
     consecutive-read_id row grouping the staged inspect/filter see in
-    annotation.tsv.  Single-member runs (unique read ids) flush
-    columnar; multi-member runs merge rows and take the object path.
+    annotation.tsv.  A run of one read that starts and closes inside
+    its batch and passes with the preset cut shape, or does not pass, is
+    closed by one native call a batch without the interpreter lock
+    (:func:`~.kit_columnar.close_runs`): each trimmed file's records of
+    the batch come back as one block, the TSV lines as one string.  The
+    same walk hands every other run to the object path below, whole and
+    in feed order between those stretches: duplicate-id runs (merged
+    rows), other cut shapes (``trim_slices``), and the run a batch
+    leaves open, which may go on in the next; without the native library
+    :func:`~.kit_columnar.walk_runs` walks the batch and the object path
+    takes every run.  Both paths write the same bytes.
 
     Under ``BARBELL_TIMING=1`` each batch's work on this thread is a
     span (:mod:`~barbell_tpu_torch.timing`): ``runner.parse`` (taking
@@ -346,15 +355,19 @@ def _demux_using_kit_streaming(
     and header split as ``reader.read``), ``runner.result_wait`` (the
     wait for the engine's next table), ``runner.annotate`` (the
     annotation rows), ``runner.filter`` (segments, labels, pattern
-    match, trim plan) and ``runner.trim`` (the per-read runs, trimmed
-    writes and buffers)."""
+    match, trim plan) and ``runner.trim`` (the runs, trimmed writes and
+    buffers); the counters ``trim.batch_reads`` and
+    ``trim.object_reads`` count the reads with rows that the native
+    call closed and that the object path took."""
     import itertools
     from collections import Counter, deque
+
+    import numpy as np
 
     from ..models.hittable import emit_tsv_lines
     from ..models.pipeline import engine_map_batches
     from ..models.records import AnnotationWriter
-    from ..timing import span
+    from ..timing import count, span
     from ..utils import fastx_native
     from ..utils.fastx import validate_fastq_paths
     from ..utils.fastx_native import ReadAhead
@@ -364,13 +377,18 @@ def _demux_using_kit_streaming(
     from .inspect import get_group_structure, print_pattern_summary
     from .kit_columnar import (
         CompiledPatterns,
+        CARRY,
+        CAP,
+        OPEN,
         StructureLabeler,
         TableAdapter,
         batch_trim_plan,
+        close_runs,
         cut_strings,
         kit_slice_label,
         matches_for_rows,
         segment_table,
+        trim_files,
         trim_slices,
     )
     from .trim import _ThreadedWriterPool, _WriterPool, process_read_and_anno
@@ -447,8 +465,9 @@ def _demux_using_kit_streaming(
     pend_recs: list = []
     ppr_buf: list = []
     filt_buf: list = []
-    # winning-pattern cut strings depend only on (pattern, row count)
-    cut_str_cache: dict = {}
+    # each pattern's cut strings a row (a passing read has a row an element)
+    cutrows = [cut_strings(cuts, len(elems))
+               for cuts, elems in zip(cpats.cuts, cpats.compiled)]
 
     def drain_bufs() -> None:
         if ppr_buf:
@@ -507,11 +526,7 @@ def _demux_using_kit_streaming(
         pattern_count[label] += 1
         if not passed:
             return
-        cuts = cpats.cuts[win]
-        cstrs = cut_str_cache.get((win, l))
-        if cstrs is None:
-            cstrs = cut_str_cache[(win, l)] = cut_strings(cuts, l)
-        filt_buf.extend(line + cs for line, cs in zip(lines, cstrs))
+        filt_buf.extend(line + cs for line, cs in zip(lines, cutrows[win]))
         if trim is not None:
             # preset cut shape: bounds/label precomputed for the whole
             # batch (batch_trim_plan); en -1 = to record end
@@ -526,7 +541,7 @@ def _demux_using_kit_streaming(
         for desc, seq, qual in pend_recs:
             results = []
             for slice_count, (st, en, rows_idx) in enumerate(
-                trim_slices(cuts, rsf, ref_, len(seq))
+                trim_slices(cpats.cuts[win], rsf, ref_, len(seq))
             ):
                 if st >= en:
                     continue
@@ -541,6 +556,57 @@ def _demux_using_kit_streaming(
                 )
             write_trimmed(results, desc)
 
+    def write_stretch(stretch) -> int:
+        """The runs the native call closed: their lines into the
+        buffers, their blocks into the trimmed files; returns their
+        count."""
+        blocks, ppr, filt, failed, counts, n_runs, kept, n_failed = stretch
+        ppr_buf.append(ppr)
+        if filt:
+            filt_buf.append(filt)
+        pattern_count.update(counts)
+        progress.add(KEPT, kept)
+        progress.add(FAILED, n_failed)
+        if failed and failed_fh is not None:
+            failed_fh.write(failed)
+        for name, block in blocks.items():
+            writers.get(name).write_block(block)
+        return n_runs
+
+    # the trimmed file of each label (the engine's vocabulary, which every
+    # table and cpats share), the files, and each label's file among them
+    file_of, files, file_slot = trim_files(engine.labels)
+
+    def object_members(positions, table, lines, slabels, seg_start, seg_len, win,
+                       passed, plan):
+        """Yields the member context of each read at ``positions`` (the
+        object path's reads of a batch), or None for a read without rows:
+        the columns gathered once, for those reads alone; each context made
+        as it is taken, so that it is gone once its run is flushed."""
+        if not positions:
+            return
+        at = np.asarray(positions, dtype=np.int64)
+        n_rows = seg_len[at]
+        first = seg_start[at]
+        off = np.cumsum(n_rows) - n_rows  # each read's rows among the gathered
+        rows = np.arange(int(n_rows.sum())) + np.repeat(first - off, n_rows)
+        cols = table.cols
+        rsf = cols["rsf"][rows].tolist()
+        ref_ = cols["ref"][rows].tolist()
+        labels = table.labels
+        row_labels = [labels[k] for k in cols["label"][rows].tolist()]
+        simple, st, en, lab = (a[at].tolist() for a in plan)
+        for k, (i, s, l, o, w, ok) in enumerate(zip(
+                positions, first.tolist(), n_rows.tolist(), off.tolist(),
+                win[at].tolist(), passed[at].tolist())):
+            if not l:
+                yield None
+                continue
+            # preset cut shape: bounds and file from the batch's plan
+            trim = (st[k], en[k], file_of[lab[k]]) if simple[k] else None
+            yield (table, s, l, slabels[i], w, ok, lines[s:s + l], rsf[o:o + l],
+                   ref_[o:o + l], row_labels[o:o + l], trim)
+
     feed = batches()
     try:
         with profile_trace(engine, "kit"):
@@ -554,54 +620,46 @@ def _demux_using_kit_streaming(
                     seg_start, seg_len = segment_table(table)
                     slabels = labeler.labels(table, seg_start, seg_len)
                     win, passed = cpats.match(table, seg_start, seg_len)
-                    seg_start_l = seg_start.tolist()
-                    seg_len_l = seg_len.tolist()
-                    win_l = win.tolist()
-                    passed_l = passed.tolist()
-                    tcols = table.cols
-                    rsf_l = tcols["rsf"].tolist()
-                    ref_l = tcols["ref"].tolist()
-                    tlabels = table.labels
-                    rowlab_l = [tlabels[k] for k in tcols["label"].tolist()]
                     tplan = batch_trim_plan(cpats, table, seg_start, win, passed)
                 with span("runner.trim", serial):
                     progress.add(TOTAL, len(ids))
-                    for i, rid in enumerate(ids):
-                        l = seg_len_l[i]
-                        if l:
-                            s = seg_start_l[i]
-                            e = s + l
-                            trim = (
-                                (tplan[1][i], tplan[2][i], tplan[3][i])
-                                if tplan is not None and tplan[0][i]
-                                else None
-                            )
-                            member = (
-                                table, s, l, slabels[i], win_l[i], passed_l[i],
-                                lines[s:e], rsf_l[s:e], ref_l[s:e], rowlab_l[s:e],
-                                trim,
-                            )
-                            if rid != pend_id:
-                                flush_run()
-                                pend_id = rid
-                                pend_members = [member]
-                                pend_recs = [(descs[i], seqs[i], quals[i])]
-                            else:
+                    # the runs of one read closed natively, in stretches;
+                    # every other run comes whole, for the object path
+                    events = close_runs(
+                        ids, descs, seqs, quals, slabels, lines, cutrows, files,
+                        seg_start, seg_len, win, passed, tplan, file_slot,
+                        pend_id, len(pend_recs), _RUN_CAP)
+                    members = object_members(
+                        [i for ev in events if len(ev) == 2 for i in ev[1]],
+                        table, lines, slabels, seg_start, seg_len, win, passed, tplan)
+                    n_batch = n_object = 0
+                    for ev in events:
+                        if len(ev) != 2:
+                            n_batch += write_stretch(ev)
+                            continue
+                        flags, positions = ev
+                        if not flags & CARRY:
+                            pend_id, pend_members, pend_recs = ids[positions[0]], [], []
+                        for i in positions:
+                            member = next(members)
+                            if member is not None:
                                 pend_members.append(member)
-                                pend_recs.append((descs[i], seqs[i], quals[i]))
-                        elif rid == pend_id:
-                            # row-less record of the live run's id: trimmed with
-                            # the run's annotations (the staged trim map does)
+                                n_object += 1
+                            # a read without rows of the run's id is
+                            # trimmed with the run's annotations (the
+                            # staged trim map does)
                             pend_recs.append((descs[i], seqs[i], quals[i]))
-                        # else: zero-match read — no annotation rows, so it
-                        # neither splits the run nor gets trimmed
-                        if len(pend_recs) >= _RUN_CAP:
+                        if flags & OPEN:
+                            continue  # it may go on in the next batch
+                        if flags & CAP:
                             progress.print_error(
                                 f"warning: read id {pend_id!r} repeats over "
                                 f"{_RUN_CAP} consecutive records; flushing early"
                             )
-                            flush_run()
-                            pend_id, pend_members, pend_recs = None, [], []
+                        flush_run()
+                        pend_id, pend_members, pend_recs = None, [], []
+                    count("trim.batch_reads", n_batch)
+                    count("trim.object_reads", n_object)
                     drain_bufs()
                     progress.refresh()
         flush_run()

@@ -299,23 +299,23 @@ def batch_trim_plan(
 ):
     """Vectorized trim bounds for every passing read whose winning
     pattern has the preset cut shape (one group, <= 2 cuts — every
-    built-in preset): returns (simple, st, en, lab) arrays or None when
-    no read qualifies.  ``en == -1`` means "to each record's end";
-    ``lab`` holds the ready label string per read.  Semantics equal
-    trim_slices + kit_slice_label row for row (the runner's general
-    path handles everything else)."""
+    built-in preset): (simple, st, en, lab) arrays over the batch's
+    reads.  ``en == -1`` means "to each record's end"; ``lab`` is the
+    index in ``table.labels`` of the label that names the read's
+    trimmed file (:func:`trim_files`).  Semantics equal trim_slices +
+    kit_slice_label row for row (the runner's general path handles
+    everything else)."""
     B = len(passed)
-    if not passed.any():
-        return None
-    labels = table.labels
-    flank_lab = np.array(["flank" in lab for lab in labels])
-    lab_code = table.cols["label"]
-    rsf = table.cols["rsf"]
-    ref_ = table.cols["ref"]
     simple = np.zeros(B, dtype=bool)
     st = np.zeros(B, dtype=np.int64)
     en = np.full(B, -1, dtype=np.int64)
     lab_idx = np.zeros(B, dtype=np.int64)
+    if not passed.any():
+        return simple, st, en, lab_idx
+    flank_lab = np.array(["flank" in lab for lab in table.labels])
+    lab_code = table.cols["label"]
+    rsf = table.cols["rsf"]
+    ref_ = table.cols["ref"]
     for pi, cuts in enumerate(cpats.cuts):
         if not 1 <= len(cuts) <= 2:
             continue
@@ -345,13 +345,86 @@ def batch_trim_plan(
             en[sel] = -1
             lab_idx[sel] = lab_code[r1]
         simple[sel] = True
-    if not simple.any():
-        return None
-    lab = [
-        ("none" if flank_lab[k] else labels[k]) if ok else ""
-        for ok, k in zip(simple.tolist(), lab_idx.tolist())
-    ]
-    return simple.tolist(), st.tolist(), en.tolist(), lab
+    return simple, st, en, lab_idx
+
+
+def trim_files(labels: Sequence[str]) -> Tuple[List[str], List[str], np.ndarray]:
+    """(per_label, names, slot): the trimmed file each label's reads go
+    to (``none`` for a flank pseudo-label, as :func:`kit_slice_label`
+    names it), those files once each, and each label's index among
+    them."""
+    per_label = ["none" if "flank" in lab else lab for lab in labels]
+    index = {name: k for k, name in enumerate(dict.fromkeys(per_label))}
+    slot = np.array([index[name] for name in per_label], dtype=np.int64)
+    return per_label, list(index), slot
+
+
+#: flags of a run :func:`close_runs` hands to the object path: the run the
+#: previous batch left open, a run still open at the batch's end, a run
+#: the early-flush count closed
+CARRY, OPEN, CAP = 1, 2, 4
+
+
+def close_runs(ids, descs, seqs, quals, slabels, lines, cutrows, names,
+               seg_start, seg_len, win, passed, plan, slot, pend_id, pend_n, cap):
+    """The batch's runs, walked by the runner's rules in one native call
+    without the interpreter lock (``bbkt_close_runs`` in the library the
+    FASTQ reader loads; see ``native/fastq_batch.cpp``, where the rules
+    are written out).  The runs of one read that start and close in the
+    batch and pass with the preset cut shape (``plan``,
+    :func:`batch_trim_plan`) or do not pass are closed there, into each
+    file's block of trimmed records and the TSV lines: a tuple for each
+    stretch of them.  Every other run comes back whole for the object
+    path, as ``(flags, [read positions])`` (:data:`CARRY`,
+    :data:`OPEN`, :data:`CAP`): duplicate ids, other cut shapes, the run
+    the previous batch left open (``pend_id``, ``pend_n`` records) and
+    the one still open at the batch's end.  Events come in feed order.
+    Where the library is not built, :func:`walk_runs` walks the batch
+    instead.  ``cutrows[w]`` are pattern ``w``'s cut strings a row,
+    ``names`` the trimmed files and ``slot`` each label's index among
+    them (:func:`trim_files`)."""
+    from ..native import get_pylib
+
+    lib = get_pylib()
+    if lib is not None:
+        simple, st, en, lab = plan
+        cols = np.stack([seg_start, seg_len, win, passed, simple, st, en, slot[lab]]).astype(
+            np.int64, copy=False)
+        if cols.shape != (8, len(ids)) or not cols.flags.c_contiguous:
+            raise ValueError(f"trim columns of shape {cols.shape} for {len(ids)} reads")
+        events = lib.bbkt_close_runs(ids, descs, seqs, quals, slabels, lines, cutrows, names,
+                                     cols.ctypes.data, len(ids), pend_id, pend_n, cap)
+        if events is not None:
+            return events
+    return walk_runs(ids, descs, seqs, quals, slabels, lines, cutrows, names,
+                     seg_start, seg_len, win, passed, plan, slot, pend_id, pend_n, cap)
+
+
+def walk_runs(ids, descs, seqs, quals, slabels, lines, cutrows, names,
+              seg_start, seg_len, win, passed, plan, slot, pend_id, pend_n, cap):
+    """:func:`close_runs`'s walk without the native library, closing
+    nothing: every run comes back for the object path.  A run is
+    delimited only by a read of another id that has rows; a read without
+    rows joins the live run where its id is the run's and is passed over
+    where it is not; a run that reaches ``cap`` records closes early."""
+    events = []
+    live, flags, recs, mine = pend_id, CARRY, pend_n, []  # live: the open run's id
+    for i, (rid, n_rows) in enumerate(zip(ids, seg_len.tolist())):
+        if rid == live:
+            recs += 1
+            mine.append(i)
+        elif n_rows:
+            if live is not None:
+                events.append((flags, mine))
+            live, flags, recs, mine = rid, 0, 1, [i]
+        else:
+            continue
+        if recs >= cap:
+            events.append((flags | CAP, mine))
+            live, mine = None, []
+    if live is not None:
+        events.append((flags | OPEN, mine))
+    return events
 
 
 def matches_for_rows(table: HitTable, s: int, l: int):

@@ -179,6 +179,9 @@ class _PyWriter:
     def write_record(self, header: bytes, seq: bytes, qual: bytes) -> None:
         self._fh.write(b"@" + header + b"\n" + seq + b"\n+\n" + qual + b"\n")
 
+    def write_block(self, block: bytes) -> None:
+        self._fh.write(block)
+
     def close(self) -> None:
         self._fh.close()
 
@@ -259,7 +262,10 @@ class _ThreadedWriterPool:
             if item is None:
                 return
             try:
-                pool.get(item[0]).write_record(item[1], item[2], item[3])
+                if len(item) == 2:
+                    pool.get(item[0]).write_block(item[1])
+                else:
+                    pool.get(item[0]).write_record(item[1], item[2], item[3])
             except BaseException as exc:  # propagate on close
                 self._errors.append(exc)
                 # Keep draining (discarding) so a producer blocked on a
@@ -277,6 +283,11 @@ class _ThreadedWriterPool:
             raise self._errors[0]
         self._queues[self._shard(group)].put((group, header, seq, qual))
 
+    def write_block(self, group, block):
+        if self._errors:
+            raise self._errors[0]
+        self._queues[self._shard(group)].put((group, block))
+
     def close_all(self):
         for q in self._queues:
             q.put(None)
@@ -289,7 +300,8 @@ class _ThreadedWriterPool:
 
 
 class _ThreadedHandle:
-    """Adapter matching the plain pool's ``get(group).write_record``."""
+    """Adapter matching the plain pool's ``get(group).write_record`` and
+    ``write_block``."""
 
     def __init__(self, pool: "_ThreadedWriterPool", group: str):
         self._pool = pool
@@ -297,6 +309,9 @@ class _ThreadedHandle:
 
     def write_record(self, header: bytes, seq: bytes, qual: bytes) -> None:
         self._pool.write(self._group, header, seq, qual)
+
+    def write_block(self, block: bytes) -> None:
+        self._pool.write_block(self._group, block)
 
 
 def trim_matches(

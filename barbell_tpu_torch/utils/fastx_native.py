@@ -229,15 +229,25 @@ class NativeFastqWriter:
         if len(b) >= self._FLUSH_AT:
             self.flush()
 
+    def write_block(self, block: bytes) -> None:
+        """Whole FASTQ records (the kit runner's block of a batch for
+        this file), buffered as records are: the file gets the same
+        ~256KB writes either way."""
+        b = self._buf
+        b += block
+        if len(b) >= self._FLUSH_AT:
+            self.flush()
+
     def flush(self) -> None:
-        if self._buf:
-            rc = self._lib.bbio_writer_write_raw(
-                self._h, bytes(self._buf), len(self._buf)
-            )
+        b = self._buf
+        if b:
+            view = (ctypes.c_char * len(b)).from_buffer(b)  # the buffer, not a copy
+            rc = self._lib.bbio_writer_write_raw(self._h, view, len(b))
+            del view  # the buffer may change size again
             if rc != 0:
                 # keep the buffer: a caller may retry after the error
                 raise OSError("native FASTQ write failed")
-            self._buf.clear()
+            b.clear()
 
     def close(self) -> None:
         if self._h:

@@ -350,6 +350,7 @@ TIMINGS = {
     "demux_call.dispatch": [0.2, 4, 0.2], "demux_call.fetch": [0.016, 4, 0.01],
     "demux_call.retry": [0.05, 1, 0.04], "engine.inflight": [1.0, 3],
     "graph.capture": [0.3, 2, 0.25], "graph.replay": [0.0, 3],
+    "trim.batch_reads": [0.0, 1995], "trim.object_reads": [0.0, 5],
 }
 EXPECT = {
     "runner.self_s_per_kread": 1.5,  # (0.25 + 0.5 + 0.75 + 1.5) / 2
@@ -359,6 +360,7 @@ EXPECT = {
     "engine.starved_share": 75.0,  # 100 x (1 - 1 / 4)
     "engine.calls_per_kread": 2.5,  # (4 + 1) / 2
     "engine.capture_s": 0.3,
+    "runner.batch_share": 99.75,  # 100 x 1995 / (1995 + 5)
 }
 #: what the parent's recorder wrote: the five phases as [wall, count]
 PARENT = {"encode": [0.4, 2], "pack_upload": [0.2, 2], "assemble.host": [0.3, 2],
@@ -384,3 +386,44 @@ def test_capture_s_reads_zero_when_calls_ran_without_a_capture():
     read = _metric("engine.capture_s")
     timings = {k: v for k, v in TIMINGS.items() if k != "graph.capture"}
     assert read({"reads": 2000, "window_s": 4.0, "timings": timings}) == 0.0
+
+
+def _kit_on_oracle(tmp_path, ids):
+    """``kit`` on the scalar oracle over reads named ``ids`` (batches of
+    4), each a rapid construct and a short body but every fourth a body
+    alone: (the counters trim.batch_reads / trim.object_reads, the reads
+    with rows)."""
+    rng = random.Random(2)
+    bars = default_barcodes(4)
+    fq = tmp_path / "r.fastq"
+    with open(fq, "w") as fh:
+        for i, rid in enumerate(ids):
+            body = bytes(random_sequence(rng, 120))
+            s = (body if i % 4 == 3 else rapid_adapter(bars[i % 4][1]) + body).decode()
+            fh.write(f"@{rid}\n{s}\n+\n{'I' * len(s)}\n")
+    with contextlib.redirect_stderr(io.StringIO()), contextlib.redirect_stdout(io.StringIO()):
+        assert cli.main(["kit", "-k", "SQK-RBK114-96", "-i", str(fq), "-o",
+                         str(tmp_path / "out"), "--backend", "oracle",
+                         "--batch-size", "4"]) == 0
+    anno = (tmp_path / "out" / "annotation.tsv").read_text().splitlines()[1:]
+    counts = [timing.TIMINGS.get(k, [0.0, 0])[1]
+              for k in ("trim.batch_reads", "trim.object_reads")]
+    return counts, len({line.split("\t")[0] for line in anno})
+
+
+def test_trim_counters_cover_the_reads_with_rows(recording, tmp_path):
+    """Every read with rows is counted once: closed in its batch by the
+    native call, or taken by the object path (at least the run each
+    batch leaves open)."""
+    (batch, obj), with_rows = _kit_on_oracle(tmp_path, [f"u{i}" for i in range(10)])
+    assert with_rows >= 6
+    assert batch + obj == with_rows
+    assert batch > 0 and obj >= 2
+
+
+def test_trim_counters_on_one_repeated_id(recording, tmp_path):
+    """Reads that all share one id make one run of many reads: the
+    object path takes it whole, the native call closes nothing."""
+    (batch, obj), with_rows = _kit_on_oracle(tmp_path, ["same"] * 10)
+    assert with_rows == 1
+    assert batch == 0 and obj >= 6
